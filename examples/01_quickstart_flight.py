@@ -4,22 +4,20 @@ Run:  PYTHONPATH=.. python 01_quickstart_flight.py   (from examples/)
       or with the repo root on PYTHONPATH.
 """
 
-import glob
-
 import jax
 import jax.numpy as jnp
 
 from unmanned_aerial_vehicles_tpu.control.mpc_linear import LinearMPC, LinearMPCConfig
 from unmanned_aerial_vehicles_tpu.gp import build_horizon_residuals, fit_residual_gp
-from unmanned_aerial_vehicles_tpu.io import load_gp_datasets
+from unmanned_aerial_vehicles_tpu.io import synthetic_corpus
 from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig, mpc_flight_rollout
 from unmanned_aerial_vehicles_tpu.metrics import tracking_metrics
 from unmanned_aerial_vehicles_tpu.trajectories import ramped_figure8_reference
 from unmanned_aerial_vehicles_tpu.utils import scaled
 
-# 1. flight data -> residual GP training set
-paths = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))
-X, Y = load_gp_datasets(paths, max_samples=scaled(800, 128))
+# 1. flight data -> residual GP training set (a seeded synthetic corpus in
+#    the reference's gp_datasets schema; io.load_gp_datasets reads CSVs)
+X, Y = synthetic_corpus(max_samples=scaled(800, 128))
 
 # 2. the controller and the loop configuration
 mpc = LinearMPC(LinearMPCConfig())          # N=25 condensed-QP GP-MPC
@@ -31,7 +29,7 @@ def reference(t):
     return pos + jnp.array([0.0, 0.0, cfg.takeoff_height]), yaw
 
 
-# 3. GP fit + 60 s closed loop, fused into one XLA program
+# 3. GP fit + 60 s closed loop as one XLA program
 @jax.jit
 def fly(Xd, Yd):
     post = fit_residual_gp(Xd, Yd)

@@ -1,7 +1,8 @@
 """Offline GP pipeline: train on flight CSVs, optimise hyperparameters with
 restarts, evaluate nominal-vs-GP, write the reference metrics CSV layout."""
 
-import glob
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -14,11 +15,12 @@ from unmanned_aerial_vehicles_tpu.gp import (
     predict_mean,
 )
 from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig, default_params
-from unmanned_aerial_vehicles_tpu.io import load_gp_datasets, save_gp_checkpoint
+from unmanned_aerial_vehicles_tpu.io import save_gp_checkpoint, synthetic_corpus
 from unmanned_aerial_vehicles_tpu.utils import scaled
 
-paths = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))
-X, Y = load_gp_datasets(paths, max_samples=scaled(600, 128))
+# a seeded synthetic corpus in the gp_datasets schema (io.load_gp_datasets
+# reads flight CSVs)
+X, Y = synthetic_corpus(max_samples=scaled(600, 128))
 Xj, Yj = jnp.asarray(X, jnp.float32), jnp.asarray(Y, jnp.float32)
 cfg = ResidualGPConfig()
 
@@ -31,11 +33,12 @@ print(f"optimised nll: {float(nll):.1f}, "
       f"length_scale: {float(jnp.exp(params.log_length_scale)):.3f}")
 
 post = fit_gp(params, Xj, Yj, jitter=cfg.alpha, normalize_y=True)
-save_gp_checkpoint("/tmp/gp_tuned.npz", post, X, Y, jitter=cfg.alpha)
+out = os.path.join(tempfile.mkdtemp(), "gp_tuned")
+save_gp_checkpoint(out + ".npz", post, X, Y, jitter=cfg.alpha)
 
 results = evaluate_gp(
     lambda x: np.asarray(predict_mean(post, jnp.asarray(x, jnp.float32))),
-    X, Y, save_prefix="/tmp/gp_tuned",
+    X, Y, save_prefix=out,
 )
 print("global improvement: "
-      f"{results['global']['improvement_%']:.1f}% (metrics at /tmp/gp_tuned_metrics.csv)")
+      f"{results['global']['improvement_%']:.1f}% (metrics at {out}_metrics.csv)")

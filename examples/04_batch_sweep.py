@@ -36,30 +36,23 @@ print(f"{B} flights on {len(jax.devices())} device(s): "
       f"rms mean {float(result['rms_mean']):.3f} m, "
       f"max {float(result['rms_max']):.3f} m")
 
-# -- throughput mode with the fused GP posterior kernel ----------------------
-# The structured batched controller kernel advances every flight in lockstep
-# (one gridded Pallas dispatch per tick), and the GP residual stage runs
-# through the limb-packed posterior-mean kernel: the (B*N, n_train) K_star
-# matrix never leaves VMEM (on v5e this halves the per-tick cost vs the
-# staged XLA GP — see artifacts/throughput_roofline.json for the analysis).
-import numpy as np
-
+# -- throughput mode: the batched sweep over the mesh ------------------------
+# Every flight advances in lockstep as one vmapped tick per device; the GP
+# residual stage evaluates all B*N horizon stages in one posterior-mean call
+# (the Triton kernel on a GPU, plain XLA elsewhere).
 from unmanned_aerial_vehicles_tpu.gp import fit_residual_gp
 from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig
+from unmanned_aerial_vehicles_tpu.io import synthetic_corpus
 from unmanned_aerial_vehicles_tpu.parallel import sharded_structured_flight_sweep
 
 gp_cfg = ResidualGPConfig()
-rng = np.random.default_rng(0)
-post = fit_residual_gp(
-    jnp.asarray(rng.normal(size=(scaled(400, 64), 10)), jnp.float32),
-    jnp.asarray(0.05 * rng.normal(size=(scaled(400, 64), 6)), jnp.float32),
-    gp_cfg,
-)
-mpc_fused = LinearMPC(LinearMPCConfig(use_fused_controller=True))
+X, Y = synthetic_corpus(max_samples=scaled(400, 64))
+post = fit_residual_gp(jnp.asarray(X, jnp.float32), jnp.asarray(Y, jnp.float32),
+                       gp_cfg)
 result_k = sharded_structured_flight_sweep(
-    mesh, mpc_fused, reference, scaled(500, 64), starts,
-    gp_posterior=post, gp_cfg=gp_cfg, gp_fused_precision="high",
+    mesh, mpc, reference, scaled(500, 64), starts,
+    gp_posterior=post, gp_cfg=gp_cfg,
 )
-print(f"structured GP-MPC sweep (fused GP kernel): "
+print(f"batched GP-MPC sweep: "
       f"rms mean {float(result_k['rms_mean']):.3f} m, "
       f"max {float(result_k['rms_max']):.3f} m")

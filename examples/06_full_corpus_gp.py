@@ -1,20 +1,19 @@
 """Full-corpus GP training on the device mesh — no 10k down-sampling.
 
 The reference's offline trainer caps itself at 10,000 samples
-(``train_gp_offline.py:155-163``). Here the whole 19.8k-sample corpus
-fits AND hyperparameter-trains via the row-sharded preconditioned-CG
-machinery (``parallel.distributed_gp``).
+(``train_gp_offline.py:155-163``). Here a whole corpus of the reference's
+size (19,816 samples; the seeded synthetic stand-in, or your own CSVs via
+``io.load_gp_datasets``) fits AND hyperparameter-trains via the
+row-sharded preconditioned-CG machinery (``parallel.distributed_gp``).
 
 On CPU, set: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
 """
-
-import glob
 
 import jax
 import jax.numpy as jnp
 
 from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig, default_params
-from unmanned_aerial_vehicles_tpu.io import load_gp_datasets
+from unmanned_aerial_vehicles_tpu.io import synthetic_corpus
 from unmanned_aerial_vehicles_tpu.utils import scaled
 from unmanned_aerial_vehicles_tpu.parallel import (
     fit_residual_gp_sharded,
@@ -24,8 +23,7 @@ from unmanned_aerial_vehicles_tpu.parallel import (
 )
 
 cfg = ResidualGPConfig()
-paths = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))
-X, Y = load_gp_datasets(paths, max_samples=scaled(None, 512))  # FULL corpus
+X, Y = synthetic_corpus(max_samples=scaled(None, 512))  # FULL corpus
 print(f"corpus: {X.shape[0]} samples")
 
 mesh = make_mesh()  # every visible device

@@ -1,13 +1,12 @@
-"""The latency tier with everything on: ONLINE in-flight GP learning inside
-the fused multi-tick kernel path, uncertainty-aware constraint tightening
-from the in-kernel posterior variance, the divergence-triggered recovery
-fallback, and a dispersed-plant Monte-Carlo study riding the same kernels.
+"""One vehicle with everything on: ONLINE in-flight GP learning,
+uncertainty-aware constraint tightening from the posterior variance, the
+divergence-triggered recovery fallback, and a dispersed-plant Monte-Carlo
+study of the same loop.
 
-This is the configuration the benchmark headline describes (~8 us/tick on
-v5e): the GP the KERNEL flies is refit from the ring buffer every 5 s of
-flight time — the reference's retrain policy (gaussian_process.py:122) —
-while plant parameters and wind are traced kernel operands, so the whole
-study vmaps without recompiling.
+The GP the MPC flies is refit from the ring buffer every 5 s of flight
+time — the reference's retrain policy (gaussian_process.py:122) — while
+plant parameters and wind are traced, so the whole study vmaps without
+recompiling.
 """
 
 import jax
@@ -31,14 +30,11 @@ mpc = LinearMPC(
     LinearMPCConfig(
         horizon=20,
         admm_iterations=10,
-        use_fused_controller=True,
         tightening_factor=2.0,   # back the state boxes off by 2 sigma of
-    )                            # the in-kernel GP posterior std
+    )                            # the GP posterior std
 )
 cfg = FlightLoopConfig(
-    use_fused_tick=True,
-    ticks_per_dispatch=8,        # 8 whole ticks per Pallas dispatch
-    fallback_error_m=1.5,        # divergence-triggered recovery (in-kernel)
+    fallback_error_m=1.5,        # divergence-triggered recovery
 )
 
 
@@ -75,7 +71,7 @@ print(f"windy fig-8, plain MPC:        {rms_tail(plain):.3f} m RMS")
 print(f"windy fig-8, ONLINE GP-MPC:    {rms_tail(online):.3f} m RMS "
       f"({int(online['gp_count'][-1])} samples learned in flight)")
 
-# --- 2. dispersed-plant Monte-Carlo on the same fused kernels -------------
+# --- 2. dispersed-plant Monte-Carlo of the same loop ------------------------
 stats = jax.jit(
     lambda: monte_carlo_mpc(
         mpc, reference, scaled(1504, 256),
@@ -84,7 +80,7 @@ stats = jax.jit(
     )
 )()
 print(
-    f"64-flight dispersion study (fused kernels): "
+    f"64-flight dispersion study: "
     f"success {float(stats['success_rate']) * 100:.1f} %, "
     f"worst excursion {float(stats['worst_max_pos']):.2f} m, "
     f"median RMS {float(stats['rms_p50']):.3f} m"

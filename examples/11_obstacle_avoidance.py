@@ -2,10 +2,10 @@
 
 The reference poses spherical keep-out constraints in its cvxpy LTV-MPC
 (``quadrotor_gp_mpc/mpc_controller.py:223-316``); here the same constraint
-class runs (1) per-tick — the reference cadence, (2) on the multitick tier
-(relinearise once per K=2 ticks, fused plant kernel, kernel plan-roll,
-attitude-recovery fallback — 70.6 us/tick on v5e), and (3) straight
-through, unconstrained, to show the penetration the rows prevent.
+class runs (1) per-tick — the reference cadence, (2) as the multitick loop
+(relinearise once per K=2 ticks, plan re-anchored through the true plant,
+attitude-recovery fallback), and (3) straight through, unconstrained, to
+show the penetration the rows prevent.
 
 Run: python examples/11_obstacle_avoidance.py
 (UAV_FAST_EXAMPLES=1 shrinks the flights for the CI smoke run.)
@@ -20,10 +20,10 @@ from unmanned_aerial_vehicles_tpu.loop.rigid_loop import (
     make_attitude_recovery_fallback,
     sqp_multitick_rollout,
 )
-from unmanned_aerial_vehicles_tpu.models import GZ_QUADROTOR_PARAMS
-from unmanned_aerial_vehicles_tpu.ops.rigid_plant_pallas import (
-    rigid_body_rk4_step_fast,
-    rigid_body_rollout_fused,
+from unmanned_aerial_vehicles_tpu.models import (
+    GZ_QUADROTOR_PARAMS,
+    rigid_body_rk4_step,
+    rigid_body_rk4_substeps,
 )
 from unmanned_aerial_vehicles_tpu.utils import scaled
 
@@ -42,7 +42,7 @@ def ref12(t):
 
 
 def plant(x, u):
-    return rigid_body_rk4_step_fast(x, u, GZ_QUADROTOR_PARAMS, DT, substeps=2)
+    return rigid_body_rk4_substeps(x, u, GZ_QUADROTOR_PARAMS, DT, substeps=2)
 
 
 def report(name, st):
@@ -76,7 +76,7 @@ def fly_pertick(x0):
 
 d_pt = report("per-tick LTV + rows", np.asarray(fly_pertick(ref12(0.0))))
 
-# --- 2. multitick tier (the 70 us/tick configuration) ---------------------
+# --- 2. multitick loop (relinearise once per 2 ticks) ---------------------
 
 
 def reference_fn(ticks):
@@ -86,14 +86,21 @@ def reference_fn(ticks):
     return jax.vmap(one)(ticks)
 
 
+def plan_roll(x_fin, U_fin, residuals):
+    """Re-anchor the plan through the true plant (one RK4 step per stage)."""
+    def body(x, u):
+        xn = rigid_body_rk4_step(x, u, GZ_QUADROTOR_PARAMS, DT)
+        return xn, xn
+    return jax.lax.scan(body, x_fin, U_fin)[1]
+
+
 @jax.jit
 def fly_multitick(x0):
     outs = sqp_multitick_rollout(
         mpc_con.mpc, mpc_con.cost, reference_fn, plant, x0, T,
         ticks_per_dispatch=2, admm_iterations=100,
         u_init=mpc_con.u_hover, obstacles=OBSTACLE,
-        plan_roll_fn=lambda xf, Uf, res: rigid_body_rollout_fused(
-            xf, Uf, GZ_QUADROTOR_PARAMS, DT),
+        plan_roll_fn=plan_roll,
         fallback_fn=make_attitude_recovery_fallback(GZ_QUADROTOR_PARAMS),
     )
     return outs["state"]
@@ -122,5 +129,5 @@ d_free = report("unconstrained (control)", np.asarray(fly_free(ref12(0.0))))
 
 assert d_free < 0.3, "the control flight should penetrate the sphere"
 assert d_pt > 0.3 and d_mt > 0.3, "constrained flights must clear it"
-print("both constrained tiers clear the sphere the reference path "
+print("both constrained loops clear the sphere the reference path "
       "passes through; the unconstrained flight penetrates it.")

@@ -1,17 +1,15 @@
-"""The 12-state torque family end to end: fused whole-tick kernel + EKF.
+"""The 12-state torque family end to end: multitick loop + EKF.
 
-Two round-5 capabilities for the reference's full 12-state formulation
-(``src/px4/mpc_FULL.py:86-549``). (1) ``rigid_multitick_fused``: the
-torque-SQP engine's per-tick chain — warm-start shift, condensed ADMM,
-RK4 rigid-body plant — runs as ONE Pallas dispatch of K ticks (the
-direct-rate multitick kernel with its in-kernel plant swapped via the
-shared ``make_plant_math``); measured ~6.4 us/tick at K=20 on v5e vs
-~50 staged, RMS identical. (2) ``noisy_rigid_mpc_rollout``: the
-estimator joins the 12-state loop — noisy sensors -> rigid-body EKF
-(pluggable process model, ``ekf_step(step_fn=...)``) -> controller
-flying the ESTIMATE -> true plant. The reference always flew PX4-EKF2's
-output; here the whole chain is one ``lax.scan`` and the
-estimator-induced tracking cost is measurable (~1e-3 m on this task).
+Two capabilities for the reference's full 12-state formulation
+(``src/px4/mpc_FULL.py:86-549``). (1) ``sqp_multitick_rollout``: the
+torque-SQP engine relinearised once per K ticks, against the per-tick
+engine's answer (the per-dispatch anchor costs little RMS). (2)
+``noisy_rigid_mpc_rollout``: the estimator joins the 12-state loop — noisy
+sensors -> rigid-body EKF (pluggable process model,
+``ekf_step(step_fn=...)``) -> controller flying the ESTIMATE -> true plant.
+The reference always flew PX4-EKF2's output; here the whole chain is one
+``lax.scan`` and the estimator-induced tracking cost is measurable (~1e-3 m
+on this task).
 """
 
 import jax
@@ -23,10 +21,7 @@ from unmanned_aerial_vehicles_tpu.estimation import EKFConfig
 from unmanned_aerial_vehicles_tpu.estimation.noisy_loop import (
     noisy_rigid_mpc_rollout,
 )
-from unmanned_aerial_vehicles_tpu.loop.rigid_loop import (
-    rigid_multitick_fused,
-    sqp_multitick_rollout,
-)
+from unmanned_aerial_vehicles_tpu.loop.rigid_loop import sqp_multitick_rollout
 from unmanned_aerial_vehicles_tpu.models import X500_PARAMS, rigid_body_rk4_step
 from unmanned_aerial_vehicles_tpu.trajectories import ramped_circle_reference
 from unmanned_aerial_vehicles_tpu.utils import scaled
@@ -63,26 +58,25 @@ def rms_vs_ref(states):
         (np.asarray(states[:, 0:3]) - refs) ** 2, -1))))
 
 
-# --- 1. fused whole-tick tier vs the staged multitick -------------------
+# --- 1. multitick loop at two dispatch lengths ---------------------------
 STEPS = scaled(480, 40)
-K, ITERS = scaled(20, 4), scaled(10, 10)
+ITERS = 10
 x0 = jnp.zeros(12, jnp.float32).at[2].set(HEIGHT)
 plant = lambda x, u: rigid_body_rk4_step(x, u, X500_PARAMS, DT)
 
-staged = jax.jit(lambda: sqp_multitick_rollout(
-    eng.mpc, eng.cost, reference_fn, plant, x0, STEPS,
-    ticks_per_dispatch=K, admm_iterations=ITERS, u_init=eng.u_hover,
-    plan_roll="linear"))()
-fused = jax.jit(lambda: rigid_multitick_fused(
-    eng.mpc, eng.cost, reference_fn, x0, STEPS,
-    ticks_per_dispatch=K, admm_iterations=ITERS, u_init=eng.u_hover,
-    dt=DT, plan_roll="linear"))()
+
+def multitick(K):
+    return jax.jit(lambda: sqp_multitick_rollout(
+        eng.mpc, eng.cost, reference_fn, plant, x0, STEPS,
+        ticks_per_dispatch=K, admm_iterations=ITERS, u_init=eng.u_hover,
+    ))()
+
+
+k_short, k_long = 2, scaled(20, 4)
 print(
-    f"torque-SQP multitick (K={K}, {ITERS} ADMM iters, {STEPS} ticks): "
-    f"staged RMS {rms_vs_ref(staged['state']):.4f} m, "
-    f"fused-kernel RMS {rms_vs_ref(fused['state']):.4f} m "
-    f"(~6.4 us/tick on v5e at K=20, "
-    f"artifacts/controller_latency.json sqp_mpc12_multitick_fused_k20_i10)"
+    f"torque-SQP multitick ({ITERS} ADMM iters, {STEPS} ticks): "
+    f"RMS {rms_vs_ref(multitick(k_short)['state']):.4f} m at K={k_short}, "
+    f"{rms_vs_ref(multitick(k_long)['state']):.4f} m at K={k_long}"
 )
 
 # --- 2. the estimator joins the 12-state loop ---------------------------

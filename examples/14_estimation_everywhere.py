@@ -1,13 +1,12 @@
-"""Estimation across every tier: multi-rate LTV and learning from estimates.
+"""Estimation everywhere: multi-rate LTV and learning from estimates.
 
-Round-5 capstones for the estimation row of the capability matrix.
 (1) ``noisy_ltv_rollout``: the LTV tracking MPC (the cvxpy engine's role,
 ``quadrotor_gp_mpc/mpc_controller.py:123-368``) gets a MULTI-RATE
-estimator tier — plant + rigid-body EKF at the 100 Hz sensor rate, the
+estimator loop — plant + rigid-body EKF at the 100 Hz sensor rate, the
 solve every 10th plant tick flying the ESTIMATE. That is exactly the reference's
 rate split (100 Hz plant under the 10 Hz cvxpy timer,
 ``main.py:814-826``) with the PX4-EKF2 role brought in-graph; obstacle
-rows compose. (2) online + noisy on the fused 6-state path: the in-flight
+rows compose. (2) online + noisy on the 6-state loop: the in-flight
 GP trains on EKF ESTIMATES — the reference's actual data path, since the
 flight node's captured "state" is PX4-EKF2 output
 (``src/px4/mpc.py:1889-1907,2016-2021``) — and still recovers the
@@ -91,9 +90,8 @@ def ref(t):
     return pos + jnp.array([0.0, 0.0, HEIGHT]), yaw
 
 
-mpc = LinearMPC(LinearMPCConfig(horizon=20, admm_iterations=60,
-                                use_fused_controller=True))
-cfg = FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8)
+mpc = LinearMPC(LinearMPCConfig(horizon=20, admm_iterations=60))
+cfg = FlightLoopConfig()
 ekf_cfg = EKFConfig()
 
 plain = jax.jit(lambda: noisy_mpc_flight_rollout(
@@ -117,5 +115,5 @@ print(
     f"windy fig-8, learning FROM ESTIMATES ({STEPS} ticks): plain noisy "
     f"{tail_rms(plain):.3f} m -> online-noisy {tail_rms(online):.3f} m "
     f"(GP samples {int(np.asarray(online['gp_count'])[-1])}; capture, "
-    f"refit, EKF and solve all on the fused multi-tick path)"
+    f"refit, EKF and solve in one scan)"
 )

@@ -119,44 +119,6 @@ print(f"gust at t={T_GUST:.0f}s         : plain tail RMS "
       f"[{d_post[0]:+.2f} {d_post[1]:+.2f} {d_post[2]:+.2f}] "
       f"(wind flipped to [-1.0, +1.5, 0])")
 
-# the SAME gust+observer flight at the latency tier: the multi-tick kernel
-# takes a per-tick (K, 16) plant-row operand (only the wind lanes vary) and
-# the 15-state filter rides the padded covariance operand in-kernel —
-# ~8.7 µs/tick on chip (gust_observer_fused_multitick). Staged-vs-fused is
-# compared at the SAME controller config (the fused kernel caps n_pad at
-# 128, so horizon 20 here vs the staged default 25 above).
-mpc_fused = LinearMPC(
-    LinearMPCConfig(horizon=20, admm_iterations=60,
-                    use_fused_controller=True)
-)
-
-
-def fly_n20(loop_cfg, **kw):
-    outs = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            mpc_fused, fig8, num_steps, key, preview=True, body=windy,
-            cfg=loop_cfg, **kw,
-        )
-    )()
-    outs = {k: np.asarray(v) for k, v in outs.items()}
-    e = np.linalg.norm(outs["pos_ref"] - outs["state"][:, 0:3], axis=1)
-    return outs, float(np.sqrt((e[len(e) // 2:] ** 2).mean()))
-
-
-_, rms_gs = fly_n20(FlightLoopConfig(), disturbance_observer=True,
-                    wind_fn=wind_fn)
-outs_gf, rms_gf = fly_n20(
-    FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=scaled(8, 4)),
-    disturbance_observer=True, wind_fn=wind_fn,
-)
-d_post_f = outs_gf["disturbance_est"][num_steps // 2:].mean(axis=0)
-print(f"  (latency tier, in-kernel  : tail RMS {rms_gf:.3f} m vs staged "
-      f"same-config {rms_gs:.3f} m; post-gust d_est = "
-      f"[{d_post_f[0]:+.2f} {d_post_f[1]:+.2f} {d_post_f[2]:+.2f}])")
-assert d_post_f[0] < 0.0, d_post_f
-# same config + same PRNG => the execution tiers glue (campaign row
-# mpc_dob_gusty_fused_figure8 ties staged to 6 decimals over 132 s)
-assert abs(rms_gf - rms_gs) < max(0.01, 0.02 * rms_gs), (rms_gf, rms_gs)
 # the estimate's x-component flips with the wind in any workload; the
 # tracking win needs a settled post-gust window (the full 48 s flight —
 # the 6 s smoke run's tail is entirely the ~2 s re-convergence transient)

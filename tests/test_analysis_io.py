@@ -1,6 +1,5 @@
 """GP analysis module, plotting utilities, native CSV loader."""
 
-import glob
 import os
 
 import jax.numpy as jnp
@@ -23,7 +22,12 @@ from unmanned_aerial_vehicles_tpu.metrics.plots import (
     plot_flight_log,
 )
 
-CSV = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))[0]
+import pytest
+
+
+@pytest.fixture
+def flight_csv(flight_csvs):
+    return flight_csvs[0]
 
 
 def test_physical_test_points():
@@ -34,8 +38,8 @@ def test_physical_test_points():
     assert g.shape == (100, 7) and np.abs(g).max() <= 1.0
 
 
-def test_analyze_gp_model():
-    X, Y = load_gp_dataset(CSV)
+def test_analyze_gp_model(flight_csv):
+    X, Y = load_gp_dataset(flight_csv)
     post = fit_residual_gp(jnp.asarray(X[:200]), jnp.asarray(Y[:200]))
 
     def predict_fn(pts):
@@ -78,9 +82,9 @@ def test_plot_comparison(tmp_path):
     assert os.path.getsize(path) > 10_000
 
 
-def test_native_csv_parity():
-    data_native = load_numeric_csv(CSV, 16)
-    data_np = np.atleast_2d(np.genfromtxt(CSV, delimiter=",", skip_header=1))
+def test_native_csv_parity(flight_csv):
+    data_native = load_numeric_csv(flight_csv, 16)
+    data_np = np.atleast_2d(np.genfromtxt(flight_csv, delimiter=",", skip_header=1))
     np.testing.assert_array_equal(data_native, data_np)
     assert native_available() or True  # informational; fallback is also valid
 
@@ -141,20 +145,12 @@ def test_analyze_cli_on_artifact(tmp_path, capsys):
     assert os.path.getsize(png) > 10_000
 
 
-def test_device_timeit_and_metrics_logger(tmp_path):
-    import jax
-    import jax.numpy as jnp
-
+def test_measure_time_and_metrics_logger(tmp_path):
     from unmanned_aerial_vehicles_tpu.metrics import (
         MetricsLogger,
         measure_time,
         mpc_metrics_summary,
     )
-    from unmanned_aerial_vehicles_tpu.utils import device_timeit
-
-    f = jax.jit(lambda x: jnp.sum(x**2))
-    dt = device_timeit(f, jnp.arange(1024.0), reps=2)
-    assert dt > 0
 
     @measure_time
     def slowish():
@@ -170,13 +166,13 @@ def test_device_timeit_and_metrics_logger(tmp_path):
     assert os.path.exists(path)
 
 
-def test_gp_checkpoint_metadata(tmp_path):
+def test_gp_checkpoint_metadata(tmp_path, flight_csv):
     import jax.numpy as jnp
 
     from unmanned_aerial_vehicles_tpu.gp import fit_residual_gp
     from unmanned_aerial_vehicles_tpu.io import save_gp_checkpoint
 
-    X, Y = load_gp_dataset(CSV)
+    X, Y = load_gp_dataset(flight_csv)
     post = fit_residual_gp(jnp.asarray(X[:50]), jnp.asarray(Y[:50]))
     path = str(tmp_path / "m.npz")
     save_gp_checkpoint(path, post, X[:50], Y[:50], jitter=1e-4,
@@ -185,7 +181,7 @@ def test_gp_checkpoint_metadata(tmp_path):
     assert int(data["meta_training_count"]) == 3
 
 
-def test_run_complete_gp_analysis(tmp_path):
+def test_run_complete_gp_analysis(tmp_path, flight_csv):
     """The reference's run_complete_evaluation surface
     (gp_evaluation.py:551-575): quantitative report + the three figures
     (prediction distributions, uncertainty-vs-state, output correlations)."""
@@ -193,7 +189,7 @@ def test_run_complete_gp_analysis(tmp_path):
         run_complete_gp_analysis,
     )
 
-    X, Y = load_gp_dataset(CSV)
+    X, Y = load_gp_dataset(flight_csv)
     post = fit_residual_gp(jnp.asarray(X[:150]), jnp.asarray(Y[:150]))
 
     def predict_fn(pts):

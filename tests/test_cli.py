@@ -1,16 +1,16 @@
 """CLI smoke tests (train-gp -> evaluate-gp round trip, compare)."""
 
-import glob
 import json
 import os
 
 import numpy as np
+import pytest
 
 from unmanned_aerial_vehicles_tpu.cli import main
 
 
-def test_train_then_evaluate(tmp_path, capsys):
-    data = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))[0]
+def test_train_then_evaluate(tmp_path, capsys, flight_csvs):
+    data = flight_csvs[0]
     model = str(tmp_path / "gp.npz")
 
     assert main(["train-gp", "--data", data, "--output", model,
@@ -80,9 +80,9 @@ def test_fly_mpc12_command(capsys):
     assert out["rms_pos"] < 1.3  # reference's early 12-state run: 1.288 m
 
 
-def test_train_gp_all_samples_sharded(tmp_path, capsys):
+def test_train_gp_all_samples_sharded(tmp_path, capsys, flight_csvs):
     """--all-samples routes through the mesh-sharded CG trainer."""
-    data = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))[0]
+    data = flight_csvs[0]
     model = str(tmp_path / "gp_full.npz")
     assert main(["train-gp", "--data", data, "--all-samples",
                  "--cg-iterations", "120", "--output", model]) == 0
@@ -98,12 +98,15 @@ def test_fly_ilqr12(capsys):
     assert payload["rms_pos"] < 3.0
 
 
-def test_fly_fast_fused_tick(capsys):
-    """--fast exercises the whole-tick Pallas kernel (interpreter on CPU)."""
-    assert main(["fly", "--controller", "mpc", "--fast", "--duration", "2",
-                 "--amplitude", "2"]) == 0
-    payload = json.loads(capsys.readouterr().out)
-    assert payload["rms_pos"] < 3.0
+@pytest.mark.parametrize("flag", [["--fast"], ["--ekf-relin", "tick"],
+                                  ["--ekf-cov", "highest"]])
+def test_fly_removed_flags_rejected(flag, capsys):
+    """The options that chose kernel paths are gone: argparse rejects them
+    loudly instead of ignoring them."""
+    with pytest.raises(SystemExit) as e:
+        main(["fly", "--controller", "mpc", "--duration", "2"] + flag)
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_tune_pid_command(tmp_path, capsys):
@@ -158,10 +161,10 @@ def test_montecarlo_gpmpc_command(capsys):
     assert 0.0 <= out["success_rate"] <= 1.0
 
 
-def test_fly_pretrained_gp_model(tmp_path, capsys):
+def test_fly_pretrained_gp_model(tmp_path, capsys, flight_csvs):
     """train-gp -> fly --gp-model: the pretrained-runtime channel
     (GP_USE_MODEL/GP_MODEL_PATH, src/px4/mpc.py:1744-1750)."""
-    data = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))[0]
+    data = flight_csvs[0]
     model = str(tmp_path / "gp.npz")
     assert main(["train-gp", "--data", data, "--output", model,
                  "--max-samples", "150"]) == 0
@@ -173,21 +176,23 @@ def test_fly_pretrained_gp_model(tmp_path, capsys):
     assert out["rms_pos"] < 2.0
 
 
-def test_fly_noisy_fast_and_online(capsys):
-    """The round-3 fused CLI surfaces: --noisy --fast (EKF inside the
-    multi-tick kernel) and --fast --online (in-flight learning). Short
-    flights; both must produce finite metric JSON."""
-    assert main(["fly", "--controller", "mpc", "--noisy", "--fast",
+def test_fly_noisy_and_online(capsys):
+    """--noisy (EKF in the loop) and --online (in-flight learning). Short
+    flights; both must produce finite metric JSON, and --online needs the
+    gp-mpc controller."""
+    assert main(["fly", "--controller", "mpc", "--noisy",
                  "--duration", "3"]) == 0
     out = capsys.readouterr().out
     m = json.loads(out[: out.rindex("}") + 1])
     assert np.isfinite(m["rms_pos"])
 
-    assert main(["fly", "--controller", "gp-mpc", "--fast", "--online",
+    assert main(["fly", "--controller", "gp-mpc", "--online",
                  "--duration", "3"]) == 0
     out = capsys.readouterr().out
     m = json.loads(out[: out.rindex("}") + 1])
     assert np.isfinite(m["rms_pos"])
+    assert main(["fly", "--controller", "mpc", "--online",
+                 "--duration", "2"]) == 1
 
 
 def test_fly_animate(tmp_path, capsys):
@@ -223,36 +228,15 @@ def test_fly_direct_rate12(capsys):
     assert payload["rms_pos"] < 1.5
 
 
-def test_fly_12state_fast_multitick(capsys):
-    """--fast routes the 12-state family through the rigid_loop multitick
-    tiers (no longer ignored) and says so."""
-    for ctrl, bar in (("mpc12", 1.5), ("direct-rate12", 1.5),
-                      ("ilqr12", 3.0)):
-        assert main(["fly", "--controller", ctrl, "--fast",
-                     "--duration", "6", "--amplitude", "2"]) == 0
-        out = capsys.readouterr().out
-        assert "multitick tier" in out
-        payload = json.loads(out[out.index("{"):])
-        assert payload["rms_pos"] < bar, (ctrl, payload)
-
-
-def test_fly_mppi12_fast_rejected(capsys):
-    """mppi12 has no multitick tier; --fast is a clear error, not a silent
-    ignore."""
-    assert main(["fly", "--controller", "mppi12", "--fast",
-                 "--duration", "2"]) == 1
-
-
 def test_fly_ltv12_obstacle(capsys):
     """--controller ltv12 flies the 10 Hz LTV engine; --obstacle reserves
     the spherical rows and reports the measured clearance; other
     controllers reject --obstacle loudly."""
-    assert main(["fly", "--controller", "ltv12", "--fast",
+    assert main(["fly", "--controller", "ltv12",
                  "--duration", "8", "--trajectory", "circle",
                  "--amplitude", "1.5",
                  "--obstacle", "0,1.5,3.0,0.3"]) == 0
     out = capsys.readouterr().out
-    assert "multitick tier: ltv12" in out
     payload = json.loads(out[out.index("{"):])
     assert payload["rms_pos"] < 1.0, payload
     assert "min_obstacle_clearance" in payload
@@ -295,9 +279,8 @@ def test_fly_direct_rate12_noisy(capsys):
 
 
 def test_fly_ltv12_noisy(capsys):
-    """ltv12 --noisy runs the multi-rate estimation tier (100 Hz EKF
-    under the 10 Hz solve, estimation.noisy_ltv_rollout); --fast composes
-    with neither (the EKF must see every measurement)."""
+    """ltv12 --noisy runs the multi-rate estimation loop (100 Hz EKF
+    under the 10 Hz solve, estimation.noisy_ltv_rollout)."""
     assert main(["fly", "--controller", "ltv12", "--duration", "3",
                  "--amplitude", "1.5", "--trajectory", "circle",
                  "--noisy"]) == 0
@@ -305,15 +288,13 @@ def test_fly_ltv12_noisy(capsys):
     assert "# noisy tier: ltv12" in raw
     out = json.loads(raw[raw.index("{"):])
     assert out["rms_pos"] < 1.0
-    assert main(["fly", "--controller", "ltv12", "--duration", "2",
-                 "--noisy", "--fast"]) == 1
 
 
 def test_fly_noisy_rejects_unwired_controllers(capsys):
     assert main(["fly", "--controller", "pid", "--duration", "2",
                  "--noisy"]) == 1
     assert main(["fly", "--controller", "mpc12", "--duration", "2",
-                 "--noisy", "--fast"]) == 1
+                 "--noisy", "--push", "1", "0", "0"]) == 1
 
 
 def test_fly_wind_disturbance_observer(capsys):
@@ -327,20 +308,14 @@ def test_fly_wind_disturbance_observer(capsys):
     assert "disturbance observer" in out
     m = json.loads(out[out.index("{"):])
     assert np.isfinite(m["rms_pos"])
-    # --fast runs the observer INSIDE the fused multi-tick kernel
-    # (session: observer at the latency tier); non-residual-channel
-    # controllers and bare ltv12 --wind keep rejecting loudly
-    assert main(["fly", "--controller", "mpc", "--duration", "2",
-                 "--noisy", "--fast", "--wind", "1.5", "0.8", "0",
-                 "--disturbance-observer"]) == 0
-    out = capsys.readouterr().out
-    assert "disturbance observer" in out
+    # non-residual-channel controllers and bare ltv12 --wind keep
+    # rejecting loudly
     assert main(["fly", "--controller", "mpc12", "--duration", "2",
                  "--noisy", "--disturbance-observer"]) == 1
     assert main(["fly", "--controller", "ltv12", "--duration", "2",
                  "--wind", "1", "0", "0"]) == 1
     assert main(["fly", "--controller", "ilqr12", "--duration", "2",
-                 "--noisy", "--fast", "--disturbance-observer"]) == 1
+                 "--noisy", "--disturbance-observer"]) == 1
 
 
 def test_fly_gust(capsys):
@@ -356,17 +331,9 @@ def test_fly_gust(capsys):
     # the printed tail-mean disturbance must point INTO the post-gust wind
     line = [ln for ln in out.splitlines() if "disturbance observer" in ln]
     assert line and "-" in line[0].split("[")[1]
-    # --fast: the gust rides the multi-tick kernel's per-tick plant rows
-    assert main(["fly", "--controller", "mpc", "--duration", "6",
-                 "--noisy", "--fast", "--wind", "1.5", "0", "0",
-                 "--gust", "2", "-1.5", "0", "0",
-                 "--disturbance-observer"]) == 0
-    out = capsys.readouterr().out
-    line = [ln for ln in out.splitlines() if "disturbance observer" in ln]
-    assert line and "-" in line[0].split("[")[1]
     # ... and composes with in-flight ONLINE learning (ring-buffer GP on
-    # EKF estimates while the wind changes under the kernel)
-    assert main(["fly", "--controller", "gp-mpc", "--fast", "--online",
+    # EKF estimates while the wind changes)
+    assert main(["fly", "--controller", "gp-mpc", "--online",
                  "--noisy", "--duration", "6", "--wind", "1.5", "0", "0",
                  "--gust", "2", "-1.5", "0", "0"]) == 0
     out = capsys.readouterr().out

@@ -6,8 +6,6 @@ contract that lets ``train-gp --all-samples`` replace the reference's 10k
 down-sampling cap (``/root/reference/src/px4/train_gp_offline.py:155-163``).
 """
 
-import glob
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,14 +23,9 @@ from unmanned_aerial_vehicles_tpu.parallel import (
 )
 from unmanned_aerial_vehicles_tpu.parallel.distributed_gp import _cg
 
-CSVS = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))
-
-
 @pytest.fixture(scope="module")
-def corpus():
-    if not CSVS:
-        pytest.skip("reference gp_datasets not mounted")
-    X, Y = load_gp_datasets(CSVS[:6], max_samples=300)
+def corpus(flight_csvs):
+    X, Y = load_gp_datasets(flight_csvs, max_samples=300)
     return np.asarray(X), np.asarray(Y)
 
 
@@ -42,7 +35,7 @@ def mesh():
 
 
 def test_sharded_fit_matches_dense_cholesky(corpus, mesh):
-    """CG alpha/posterior mean parity <= 1e-6 vs the dense fit, on a real
+    """CG alpha/posterior mean parity <= 1e-6 vs the dense fit, on a
     flight-CSV subset whose row count (300) does NOT divide the mesh —
     exercising the padding/mask path."""
     X, Y = corpus

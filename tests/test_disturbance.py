@@ -5,7 +5,7 @@ residual; the augmented-state observer is the classical, learning-free
 alternative this framework adds. These tests pin: (a) the disturbance
 estimate converges to the true nominal-vs-plant acceleration gap, (b)
 feeding it forward to the MPC improves windy tracking, (c) it is harmless
-on a matched plant, and (d) the fused tiers reject the flag loudly.
+on a matched plant, and (d) gusts and online learning compose with it.
 """
 
 import jax
@@ -159,21 +159,6 @@ def test_disturbance_observer_clean_plant_harmless():
     assert np.linalg.norm(d[200:], axis=1).mean() < 1.0
 
 
-def test_disturbance_observer_rejects_fused():
-    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
-
-    mpc = LinearMPC(
-        LinearMPCConfig(horizon=10, use_fused_controller=True),
-        dtype=jnp.float32,
-    )
-    with pytest.raises(ValueError, match="multi-tick kernel"):
-        noisy_mpc_flight_rollout(
-            mpc, _fig8, 8, jax.random.PRNGKey(0),
-            cfg=FlightLoopConfig(use_fused_tick=True),
-            disturbance_observer=True,
-        )
-
-
 def test_gust_observer_tracks_wind_change():
     """Time-varying wind (``wind_fn=``): a step gust mid-flight. A frozen
     model trained on the old wind keeps feeding the old correction; the
@@ -241,103 +226,47 @@ def test_gust_observer_tracks_wind_change():
     )
 
 
-def test_wind_fn_rejects_fused_single_tick():
-    """Gusts ride the staged path or the fused MULTI-tick kernel (per-tick
-    plant rows); the single-tick kernel takes wind as a per-dispatch
-    constant and must reject wind_fn loudly."""
-    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
+def test_constant_wind_fn_matches_steady_wind():
+    """``wind_fn`` replaces the truth plant's wind per tick: a constant
+    ``wind_fn`` must fly exactly the steady-wind flight (same PRNG), with
+    and without the observer."""
+    w0 = (1.5, 0.8, 0.0)
+    mpc = LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
+                    dtype=jnp.float32)
 
-    mpc = LinearMPC(LinearMPCConfig(horizon=10), dtype=jnp.float32)
-    with pytest.raises(ValueError, match="staged path"):
-        noisy_mpc_flight_rollout(
-            mpc, _fig8, 8, jax.random.PRNGKey(0),
-            cfg=FlightLoopConfig(use_fused_tick=True),
-            wind_fn=lambda t: jnp.zeros(3, jnp.float32),
-        )
-
-
-def test_gust_fused_multitick_matches_staged():
-    """Gusts at the LATENCY tier: the fused multi-tick kernel takes a
-    (k_ticks, 16) per-tick plant-row operand when ``wind_fn`` is given —
-    the truth plant's wind changes tick-by-tick INSIDE the kernel, the
-    observer predicts with the nominal row, and the whole flight must glue
-    to the staged ``body.replace(wind=wind_fn(t))`` loop (same PRNG)."""
-    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
-
-    steps = 240
-    t_gust = 2.0
-    w0 = jnp.asarray([1.5, 0.8, 0.0], jnp.float32)
-    w1 = jnp.asarray([-1.0, 1.5, 0.0], jnp.float32)
-
-    def wind_fn(t):
-        return jnp.where(t < t_gust, w0, w1)
-
-    mpc_s = LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
-                      dtype=jnp.float32)
-    mpc_f = LinearMPC(
-        LinearMPCConfig(horizon=10, admm_iterations=40,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
-    )
-
-    def fly(mpc, cfg, dob):
-        return jax.jit(
-            lambda: noisy_mpc_flight_rollout(
-                mpc, _fig8, steps, jax.random.PRNGKey(0), body=WINDY,
-                cfg=cfg, disturbance_observer=dob, wind_fn=wind_fn,
-            )
-        )()
+    def fly(dob, wind_fn):
+        body = RigidBodyParams(wind=w0)
+        return jax.jit(lambda: noisy_mpc_flight_rollout(
+            mpc, _fig8, 160, jax.random.PRNGKey(0), body=body,
+            disturbance_observer=dob, wind_fn=wind_fn,
+            nominal_body=NOMINAL if dob else None,
+        ))()
 
     for dob in (None, True):
-        staged = fly(mpc_s, FlightLoopConfig(), dob)
-        fused = fly(
-            mpc_f,
-            FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8),
-            dob,
-        )
-        gap = np.abs(
-            np.asarray(staged["state"][:, 0:3])
-            - np.asarray(fused["state"][:, 0:3])
-        ).max()
-        assert gap < 1e-4, (dob, gap)
-        if dob:
-            d_gap = np.abs(
-                np.asarray(staged["disturbance_est"])
-                - np.asarray(fused["disturbance_est"])
-            ).max()
-            assert d_gap < 1e-3, d_gap
-            # the estimate flips with the gust on the fused path too
-            d = np.asarray(fused["disturbance_est"])
-            assert d[60:100, 0].mean() > 0.0 > d[200:, 0].mean()
+        steady = fly(dob, None)
+        const = fly(dob, lambda t: jnp.asarray(w0, jnp.float32))
+        np.testing.assert_array_equal(np.asarray(steady["state"]),
+                                      np.asarray(const["state"]))
 
 
-def test_gust_composes_with_online_learning_fused():
-    """Gusts + ONLINE learning on the fused tier: the per-tick plant-row
-    operand (wind_fn) composes with the in-kernel ring-buffer GP — the
-    training data keeps flowing through the gust, the refits keep firing,
-    and the flight stays finite. (The campaign's gpmpc_online_gusty row
-    measures whether the relearning actually recovers the post-gust
-    penalty; this pins the plumbing.)"""
+def test_gust_composes_with_online_learning():
+    """Gusts + ONLINE learning: the per-tick wind (wind_fn) composes with
+    the ring-buffer GP trained on EKF estimates — the training data keeps
+    flowing through the gust, the refits keep firing, and the flight
+    stays finite."""
     from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig
-    from unmanned_aerial_vehicles_tpu.loop import (
-        FlightLoopConfig,
-        OnlineFusedGPConfig,
-    )
+    from unmanned_aerial_vehicles_tpu.loop import OnlineFusedGPConfig
 
     steps = 192
     w0 = jnp.asarray([1.5, 0.8, 0.0], jnp.float32)
     w1 = jnp.asarray([-1.0, 1.5, 0.0], jnp.float32)
     wind_fn = lambda t: jnp.where(t < 1.6, w0, w1)
 
-    mpc_f = LinearMPC(
-        LinearMPCConfig(horizon=10, admm_iterations=40,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
-    )
+    mpc = LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
+                    dtype=jnp.float32)
     outs = jax.jit(
         lambda: noisy_mpc_flight_rollout(
-            mpc_f, _fig8, steps, jax.random.PRNGKey(0), body=WINDY,
-            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8),
+            mpc, _fig8, steps, jax.random.PRNGKey(0), body=WINDY,
             wind_fn=wind_fn, gp_gain=1.0,
             online_gp=OnlineFusedGPConfig(
                 gp=ResidualGPConfig(max_data_points=32, residual_gain=1.0),

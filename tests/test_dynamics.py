@@ -137,80 +137,25 @@ def test_params_are_pytrees():
 
 
 # ---------------------------------------------------------------------------
-# analytic EKF process Jacobians (px4_surrogate.derivative_jacobian /
-# px4_step_jacobian) vs autodiff ground truth
-# ---------------------------------------------------------------------------
-
-
-def test_surrogate_derivative_jacobian_matches_jacfwd(rng):
-    from unmanned_aerial_vehicles_tpu.models.px4_surrogate import (
-        RateLoopParams,
-        _derivative,
-        derivative_jacobian,
+@pytest.mark.parametrize("substeps", [1, 2, 3])
+def test_rk4_substeps_compose_rk4_steps(rng, substeps):
+    """``rigid_body_rk4_substeps`` = ``substeps`` RK4 steps of dt/substeps
+    under one held control and residual (the ZOH plant of the 12-state
+    loops)."""
+    from unmanned_aerial_vehicles_tpu.models import (
+        GZ_QUADROTOR_PARAMS,
+        rigid_body_rk4_step,
+        rigid_body_rk4_substeps,
     )
 
-    body = RigidBodyParams()
-    rates = RateLoopParams()
-    for _ in range(8):
-        s = jnp.asarray(rng.normal(size=12) * 0.5)
-        c = jnp.asarray([1.0 + 0.3 * rng.normal(), *(0.2 * rng.normal(size=3))])
-        J_ad = jax.jacfwd(lambda x: _derivative(x, c, body, rates))(s)
-        J_an = derivative_jacobian(s, c, body, rates)
-        np.testing.assert_allclose(np.asarray(J_an), np.asarray(J_ad),
-                                   atol=1e-12)
-
-
-def test_surrogate_derivative_jacobian_windy(rng):
-    from unmanned_aerial_vehicles_tpu.models.px4_surrogate import (
-        RateLoopParams,
-        _derivative,
-        derivative_jacobian,
-    )
-
-    body = RigidBodyParams(wind=(1.5, -0.8, 0.2))
-    rates = RateLoopParams(hover_thrust_norm=0.7)
-    s = jnp.asarray(rng.normal(size=12) * 0.5)
-    c = jnp.asarray([0.9, 0.1, -0.05, 0.02])
-    J_ad = jax.jacfwd(lambda x: _derivative(x, c, body, rates))(s)
-    J_an = derivative_jacobian(s, c, body, rates)
-    np.testing.assert_allclose(np.asarray(J_an), np.asarray(J_ad), atol=1e-12)
-
-
-def test_surrogate_derivative_jacobian_zero_airspeed():
-    """The drag block's speed->0 guard: analytic and autodiff agree AT the
-    hover singularity (both zero there by the gradient-safe construction)."""
-    from unmanned_aerial_vehicles_tpu.models.px4_surrogate import (
-        RateLoopParams,
-        _derivative,
-        derivative_jacobian,
-    )
-
-    body = RigidBodyParams()
-    rates = RateLoopParams()
-    s = jnp.zeros(12)
-    c = jnp.asarray([1.0, 0.0, 0.0, 0.0])
-    J_ad = jax.jacfwd(lambda x: _derivative(x, c, body, rates))(s)
-    J_an = derivative_jacobian(s, c, body, rates)
-    assert bool(jnp.all(jnp.isfinite(J_an)))
-    np.testing.assert_allclose(np.asarray(J_an), np.asarray(J_ad), atol=1e-12)
-
-
-def test_surrogate_step_jacobian_matches_jacfwd(rng):
-    from unmanned_aerial_vehicles_tpu.models.px4_surrogate import (
-        RateLoopParams,
-        derivative_jacobian,  # noqa: F401  (import check)
-        px4_rate_tracking_step,
-        px4_step_jacobian,
-    )
-
-    body = RigidBodyParams()
-    rates = RateLoopParams()
-    for _ in range(5):
-        s = jnp.asarray(rng.normal(size=12) * 0.4)
-        c = jnp.asarray([1.0 + 0.2 * rng.normal(), *(0.1 * rng.normal(size=3))])
-        F_ad = jax.jacfwd(
-            lambda x: px4_rate_tracking_step(x, c, body, rates, 0.02)
-        )(s)
-        F_an = px4_step_jacobian(s, c, body, rates, 0.02)
-        np.testing.assert_allclose(np.asarray(F_an), np.asarray(F_ad),
-                                   atol=1e-12)
+    x = jnp.asarray(rng.normal(size=12) * 0.3).at[2].set(2.0)
+    u = jnp.asarray([20.0, 0.01, -0.02, 0.005])
+    res = jnp.asarray(rng.normal(size=12) * 0.05)
+    dt = 0.1
+    want = x
+    for _ in range(substeps):
+        want = rigid_body_rk4_step(want, u, GZ_QUADROTOR_PARAMS,
+                                   dt / substeps, residual=res)
+    got = rigid_body_rk4_substeps(x, u, GZ_QUADROTOR_PARAMS, dt,
+                                  substeps=substeps, residual=res)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-12)

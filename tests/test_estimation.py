@@ -10,7 +10,6 @@ loop.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from unmanned_aerial_vehicles_tpu.control.mpc_linear import (
     LinearMPC,
@@ -139,188 +138,25 @@ def test_noisy_closed_loop_tracks():
     assert np.isfinite(np.asarray(noisy["final_covariance"])).all()
 
 
-def test_noisy_fused_matches_staged():
-    """fly --noisy --fast (VERDICT round-2 #7): the fused tick kernel takes
-    a separate controller-state row, so the MPC + allocation fly the EKF
-    estimate while the in-kernel plant integrates the truth. Same PRNG
-    stream, same EKF -> the fused path must track the staged noisy loop
-    within the f32 kernel-vs-XLA tolerance, and its tracking RMS must stay
-    within 0.05 m of staged (the measured estimator cost bar)."""
+def test_noisy_fallback_watches_the_estimate():
+    """The divergence fallback on the noisy loop triggers on the ESTIMATED
+    position error (the controller never sees the truth): a tight
+    threshold must engage it and change the flight, and the loop stays
+    healthy."""
     from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
 
-    steps = 300
-    mpc_s = LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
-                      dtype=jnp.float32)
-    mpc_f = LinearMPC(
-        LinearMPCConfig(horizon=10, admm_iterations=40,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
-    )
-    staged = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            mpc_s, _circle, steps, jax.random.PRNGKey(0)
-        )
-    )()
-    fused = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            mpc_f, _circle, steps, jax.random.PRNGKey(0),
-            cfg=FlightLoopConfig(use_fused_tick=True),
-        )
-    )()
-
-    def rms(outs):
-        err = np.linalg.norm(
-            np.asarray(outs["pos_ref"] - outs["state"][:, 0:3]), axis=1
-        )
-        return float(np.sqrt((err[100:] ** 2).mean()))
-
-    assert np.isfinite(np.asarray(fused["state"])).all()
-    # identical PRNG + EKF: trajectories glue together up to kernel-vs-XLA
-    # f32 differences amplified by feedback
-    gap = np.abs(
-        np.asarray(staged["state"][:, 0:3]) - np.asarray(fused["state"][:, 0:3])
-    ).max()
-    assert gap < 5e-3, gap
-    assert abs(rms(fused) - rms(staged)) < 0.05
-
-
-@pytest.mark.parametrize("K", [8, 20])
-def test_noisy_multitick_matches_staged(K):
-    """EKF INSIDE the multi-tick kernel (estimation at the latency tier):
-    covariance as a padded VMEM operand, nine sequential scalar measurement
-    fusions, F relinearised PER TICK from the in-kernel analytic Jacobian
-    (the exact RK4 chain rule — same F as the staged jacfwd up to f32
-    rounding). Same PRNG stream as the staged loop -> trajectories must
-    glue to rounding level, independent of dispatch length (measured
-    1.7e-6 m at BOTH K=8 and K=20 over 240 ticks; the rounds-2/3
-    per-dispatch frozen F sat at 4e-4 m and grew with K)."""
-    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
-
-    steps = 240
-    staged = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
-                      dtype=jnp.float32),
-            _circle, steps, jax.random.PRNGKey(0),
-        )
-    )()
-    mpc_f = LinearMPC(
-        LinearMPCConfig(horizon=10, admm_iterations=40,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
-    )
-    multi = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            mpc_f, _circle, steps, jax.random.PRNGKey(0),
-            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K),
-        )
-    )()
-    gap = np.abs(
-        np.asarray(staged["state"][:, 0:3])
-        - np.asarray(multi["state"][:, 0:3])
-    ).max()
-    assert gap < 1e-4, gap
-    est_gap = np.abs(
-        np.asarray(staged["state_est"][:, 0:3])
-        - np.asarray(multi["state_est"][:, 0:3])
-    ).max()
-    assert est_gap < 1e-4, est_gap
-    est_err = np.linalg.norm(
-        np.asarray(multi["state_est"][:, 0:3] - multi["state"][:, 0:3]),
-        axis=1,
-    )
-    assert est_err[80:].mean() < 0.05       # the estimate follows the truth
-    P = np.asarray(multi["final_covariance"])
-    assert np.isfinite(P).all()
-    np.testing.assert_allclose(P, P.T, atol=1e-5)   # symmetric
-
-    # opt-in "dispatch" relinearisation cadence (EKFConfig.relinearize_every):
-    # F frozen at the dispatch-entry estimate — cheaper per tick, with a
-    # BOUNDED covariance-drift cost that must stay strictly above the exact
-    # per-tick mode's gap (both cadences bounded at K=8 AND K=20)
-    frozen = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            mpc_f, _circle, steps, jax.random.PRNGKey(0),
-            ekf_cfg=EKFConfig(relinearize_every="dispatch"),
-            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K),
-        )
-    )()
-    gap_frozen = np.abs(
-        np.asarray(staged["state"][:, 0:3])
-        - np.asarray(frozen["state"][:, 0:3])
-    ).max()
-    assert gap_frozen < 5e-3, gap_frozen     # small, bounded drift
-    assert gap < gap_frozen                  # exact mode is strictly tighter
-    Pf = np.asarray(frozen["final_covariance"])
-    assert np.isfinite(Pf).all()
-
-    # opt-in bf16 covariance-propagation dots (EKFConfig.cov_precision):
-    # the rounding enters only the covariance (Kalman-gain quality), never
-    # the estimate arithmetic directly — P must stay finite/symmetric-ish
-    # and the truth trajectory must stay within a bounded drift of the
-    # staged filter at BOTH dispatch lengths
-    bf16 = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            mpc_f, _circle, steps, jax.random.PRNGKey(0),
-            ekf_cfg=EKFConfig(cov_precision="bf16"),
-            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K),
-        )
-    )()
-    gap_bf16 = np.abs(
-        np.asarray(staged["state"][:, 0:3])
-        - np.asarray(bf16["state"][:, 0:3])
-    ).max()
-    assert gap_bf16 < 2e-2, gap_bf16         # bounded drift (CPU interpret
-    # runs the dots in f32, so the real bf16 bound is pinned on-chip in
-    # tests_tpu::test_noisy_multitick_bf16_cov_on_chip)
-    est_err_b = np.linalg.norm(
-        np.asarray(bf16["state_est"][:, 0:3] - bf16["state"][:, 0:3]), axis=1
-    )
-    assert est_err_b[80:].mean() < 0.05      # filter still converges
-    Pb = np.asarray(bf16["final_covariance"])
-    assert np.isfinite(Pb).all()
-    np.testing.assert_allclose(Pb, Pb.T, atol=1e-4)
-
-
-def test_noisy_multitick_rejects_residual_fn():
-    """The multi-tick noisy path computes the GP in-kernel: a staged
-    residual_fn hook (without the raw posterior) is rejected with the
-    supported route named."""
-    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
-
-    mpc = LinearMPC(
-        LinearMPCConfig(horizon=5, admm_iterations=10,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
-    )
-    try:
-        noisy_mpc_flight_rollout(
-            mpc, _circle, 8, jax.random.PRNGKey(0),
-            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8),
-            residual_fn=lambda X, U: jnp.zeros((5, 6), jnp.float32),
-        )
-    except ValueError as e:
-        assert "gp_posterior" in str(e)
-    else:
-        raise AssertionError("expected ValueError")
-
-
-def test_noisy_multitick_rejects_bad_cov_precision():
-    """Unknown EKFConfig.cov_precision fails loudly with the choices named
-    (a typo must not silently fly the HIGHEST path)."""
-    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
-
-    mpc = LinearMPC(
-        LinearMPCConfig(horizon=5, admm_iterations=10,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
-    )
-    with pytest.raises(ValueError, match="cov_precision"):
-        noisy_mpc_flight_rollout(
-            mpc, _circle, 8, jax.random.PRNGKey(0),
-            ekf_cfg=EKFConfig(cov_precision="fp8"),
-            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8),
-        )
+    mpc = LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
+                    dtype=jnp.float32)
+    runs = {
+        thr: jax.jit(lambda thr=thr: noisy_mpc_flight_rollout(
+            mpc, _circle, 200, jax.random.PRNGKey(0),
+            cfg=FlightLoopConfig(fallback_error_m=thr),
+        ))()
+        for thr in (0.0, 0.05)
+    }
+    assert all(np.isfinite(np.asarray(o["state"])).all() for o in runs.values())
+    gap = np.abs(np.asarray(runs[0.0]["state"]) - np.asarray(runs[0.05]["state"]))
+    assert gap.max() > 1e-3
 
 
 def test_noisy_loop_matches_ideal_with_clean_sensors():
@@ -344,154 +180,84 @@ def test_noisy_loop_matches_ideal_with_clean_sensors():
     assert gap < 0.02, gap
 
 
-def test_noisy_multitick_gp_preview_matches_staged():
-    """The full combination at the latency tier: EKF in-kernel + GP
-    residuals in-kernel (features from the ESTIMATE trajectory) + preview
-    references — must glue to the staged noisy GP+preview loop on the same
-    PRNG stream (measured 3.5e-4 m over 240 ticks)."""
-    from unmanned_aerial_vehicles_tpu.gp import (
-        build_horizon_residuals,
-        fit_residual_gp,
-    )
+def _small_posterior():
+    from unmanned_aerial_vehicles_tpu.gp import fit_residual_gp
     from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig
-    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
 
     rng = np.random.default_rng(0)
     X = jnp.asarray(rng.normal(size=(64, 10)), jnp.float32)
     Y = jnp.asarray(0.05 * rng.normal(size=(64, 6)), jnp.float32)
     gcfg = ResidualGPConfig()
-    post = fit_residual_gp(X, Y, gcfg)
+    return fit_residual_gp(X, Y, gcfg), gcfg
+
+
+def test_noisy_gp_posterior_preview_matches_residual_fn():
+    """EKF + GP residuals (features from the ESTIMATE trajectory) + preview:
+    ``gp_posterior=`` must fly exactly what the explicit ``residual_fn``
+    hook flies on the same PRNG stream."""
+    from unmanned_aerial_vehicles_tpu.gp import build_horizon_residuals
+
+    post, gcfg = _small_posterior()
     rf = lambda Xg, Ug: build_horizon_residuals(post, Xg, Ug, gcfg)
-    steps = 240
-    staged = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
-                      dtype=jnp.float32),
-            _circle, steps, jax.random.PRNGKey(0), residual_fn=rf,
-            preview=True,
-        )
-    )()
-    mpc_f = LinearMPC(
-        LinearMPCConfig(horizon=10, admm_iterations=40,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
-    )
-    multi = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            mpc_f, _circle, steps, jax.random.PRNGKey(0),
-            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8),
-            gp_posterior=post, gp_gain=gcfg.residual_gain, preview=True,
-        )
-    )()
-    gap = np.abs(
-        np.asarray(staged["state"][:, 0:3])
-        - np.asarray(multi["state"][:, 0:3])
-    ).max()
-    assert gap < 5e-3, gap
+    mpc = LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
+                    dtype=jnp.float32)
+    hooks = jax.jit(lambda: noisy_mpc_flight_rollout(
+        mpc, _circle, 240, jax.random.PRNGKey(0), residual_fn=rf,
+        preview=True,
+    ))()
+    ours = jax.jit(lambda: noisy_mpc_flight_rollout(
+        mpc, _circle, 240, jax.random.PRNGKey(0), gp_posterior=post,
+        gp_gain=gcfg.residual_gain, preview=True,
+    ))()
+    np.testing.assert_array_equal(np.asarray(hooks["state"]),
+                                  np.asarray(ours["state"]))
 
 
-def test_noisy_multitick_dob_matches_staged():
-    """The 15-state disturbance observer INSIDE the multi-tick kernel:
-    augmented covariance rides the same padded (128,128) operand, the
-    filter predicts with the NOMINAL plant row while the in-kernel plant
-    integrates the windy truth, and the estimate feeds the MPC as in-kernel
-    residual feedforward. Must glue to the staged ``dekf_step`` loop on the
-    same PRNG stream (measured ~5e-6 over 96 ticks at K=8)."""
-    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
+def test_noisy_dob_estimates_wind():
+    """The 15-state disturbance observer on the noisy loop: the filter
+    predicts with the NOMINAL plant while the truth flies in wind; the
+    settled estimate carries the along-wind acceleration gap and the
+    augmented covariance stays finite."""
     from unmanned_aerial_vehicles_tpu.models.params import RigidBodyParams
 
     steps = 240
     body = RigidBodyParams().replace(wind=(1.5, 0.8, 0.0))
-    staged = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
-                      dtype=jnp.float32),
-            _circle, steps, jax.random.PRNGKey(0), body=body,
-            disturbance_observer=True,
-        )
-    )()
-    mpc_f = LinearMPC(
-        LinearMPCConfig(horizon=10, admm_iterations=40,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
-    )
-    fused = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            mpc_f, _circle, steps, jax.random.PRNGKey(0), body=body,
-            disturbance_observer=True,
-            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8),
-        )
-    )()
-    gap = np.abs(
-        np.asarray(staged["state"][:, 0:3])
-        - np.asarray(fused["state"][:, 0:3])
-    ).max()
-    assert gap < 1e-4, gap
-    d_gap = np.abs(
-        np.asarray(staged["disturbance_est"])
-        - np.asarray(fused["disturbance_est"])
-    ).max()
-    assert d_gap < 1e-4, d_gap
-    # the observer is actually working: the settled estimate carries the
-    # along-wind acceleration gap (non-trivial magnitude, +x dominant)
-    d_tail = np.asarray(fused["disturbance_est"])[steps // 2:].mean(axis=0)
+    outs = jax.jit(lambda: noisy_mpc_flight_rollout(
+        LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
+                  dtype=jnp.float32),
+        _circle, steps, jax.random.PRNGKey(0), body=body,
+        disturbance_observer=True,
+    ))()
+    d_tail = np.asarray(outs["disturbance_est"])[steps // 2:].mean(axis=0)
     assert d_tail[0] > 0.5, d_tail
-    P = np.asarray(fused["final_covariance"])
+    P = np.asarray(outs["final_covariance"])
     assert P.shape == (15, 15)
     assert np.isfinite(P).all()
 
 
-def test_noisy_multitick_dob_composes_with_gp():
-    """Observer + GP on the fused tier must SUM on the residual lanes —
-    the staged path's ``residuals + dob_rows`` composition, now with both
-    terms computed inside the kernel."""
-    from unmanned_aerial_vehicles_tpu.gp import (
-        build_horizon_residuals,
-        fit_residual_gp,
-    )
-    from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig
-    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig
+def test_noisy_dob_composes_with_gp_posterior():
+    """Observer + GP must SUM on the residual rows: ``gp_posterior=`` plus
+    the observer flies exactly what ``residual_fn`` plus the observer
+    flies, and differs from the observer alone."""
+    from unmanned_aerial_vehicles_tpu.gp import build_horizon_residuals
     from unmanned_aerial_vehicles_tpu.models.params import RigidBodyParams
 
-    rng = np.random.default_rng(0)
-    X = jnp.asarray(rng.normal(size=(64, 10)), jnp.float32)
-    Y = jnp.asarray(0.05 * rng.normal(size=(64, 6)), jnp.float32)
-    gcfg = ResidualGPConfig()
-    post = fit_residual_gp(X, Y, gcfg)
+    post, gcfg = _small_posterior()
     rf = lambda Xg, Ug: build_horizon_residuals(post, Xg, Ug, gcfg)
     steps = 120
     body = RigidBodyParams().replace(wind=(1.5, 0.8, 0.0))
-    staged = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
-                      dtype=jnp.float32),
-            _circle, steps, jax.random.PRNGKey(0), body=body,
-            residual_fn=rf, disturbance_observer=True,
-        )
-    )()
-    mpc_f = LinearMPC(
-        LinearMPCConfig(horizon=10, admm_iterations=40,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
-    )
-    fused = jax.jit(
-        lambda: noisy_mpc_flight_rollout(
-            mpc_f, _circle, steps, jax.random.PRNGKey(0), body=body,
-            gp_posterior=post, gp_gain=gcfg.residual_gain,
-            disturbance_observer=True,
-            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8),
-        )
-    )()
-    gap = np.abs(
-        np.asarray(staged["state"][:, 0:3])
-        - np.asarray(fused["state"][:, 0:3])
-    ).max()
-    assert gap < 5e-3, gap
-    d_gap = np.abs(
-        np.asarray(staged["disturbance_est"])
-        - np.asarray(fused["disturbance_est"])
-    ).max()
-    assert d_gap < 5e-3, d_gap
+    mpc = LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=40),
+                    dtype=jnp.float32)
+    fly = lambda **kw: jax.jit(lambda: noisy_mpc_flight_rollout(
+        mpc, _circle, steps, jax.random.PRNGKey(0), body=body,
+        disturbance_observer=True, **kw,
+    ))()
+    hooks = fly(residual_fn=rf)
+    ours = fly(gp_posterior=post, gp_gain=gcfg.residual_gain)
+    alone = fly()
+    np.testing.assert_array_equal(np.asarray(hooks["state"]),
+                                  np.asarray(ours["state"]))
+    assert np.abs(np.asarray(alone["state"]) - np.asarray(ours["state"])).max() > 0
 
 
 # ---------------------------------------------------------------------------

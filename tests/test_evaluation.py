@@ -1,12 +1,7 @@
-"""Offline GP evaluation, per-dim GP trainer and comparison-harness tests.
-
-The evaluator parity test reproduces the reference's *published* metrics CSV
-(``gp_datasets/gp_mpc_data_20251124_225535_metrics.csv``) by running the
-committed sklearn pickle through OUR metric code — end-to-end evidence the
-formulas match (SURVEY.md section 6, GP offline rows)."""
+"""Offline GP evaluation, per-dim GP trainer and comparison-harness tests
+(SURVEY.md section 6, GP offline rows), on the seeded synthetic corpus."""
 
 import csv
-import pickle
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,53 +29,15 @@ from unmanned_aerial_vehicles_tpu.metrics import (
     mpc_metrics_summary,
 )
 
-REF_CSV = "/root/reference/gp_datasets/gp_mpc_data_20251124_225535.csv"
-REF_METRICS = "/root/reference/gp_datasets/gp_mpc_data_20251124_225535_metrics.csv"
-# NOTE: a dangling symlink in the reference mount (target blob stripped);
-# the parity test auto-skips unless a future mount restores it.
-REF_PICKLE = "/root/reference/gp_models/gp_model_latest.pkl"
+@pytest.fixture
+def flight_csv(flight_csvs):
+    return flight_csvs[0]
 
 
-def _load_reference_model():
-    try:
-        with open(REF_PICKLE, "rb") as f:
-            obj = pickle.load(f)
-        gp = obj["gp_model"] if isinstance(obj, dict) and "gp_model" in obj else obj
-        if not hasattr(gp, "predict"):
-            return None
-        return gp
-    except Exception:
-        return None
-
-
-def test_evaluator_reproduces_published_metrics():
-    """Run the committed sklearn model through our evaluator; numbers must
-    match the committed metrics CSV (which the reference produced)."""
-    gp = _load_reference_model()
-    if gp is None:
-        pytest.skip("reference pickle not loadable in this environment")
-
-    X, Y = load_gp_dataset(REF_CSV, residual_norm_limit=np.inf)
-    results = evaluate_gp(lambda x: gp.predict(x), X, Y)
-
-    with open(REF_METRICS) as f:
-        published = list(csv.DictReader(f))
-
-    ours = {row["component"]: row for row in results["per_component"]}
-    for ref_row in published:
-        mine = ours[ref_row["component"]]
-        for col in ("mse_nom", "mse_gp", "rmse_nom", "rmse_gp",
-                    "improvement_%", "r2_nom", "r2_gp", "frac_better"):
-            np.testing.assert_allclose(
-                mine[col], float(ref_row[col]), rtol=1e-6,
-                err_msg=f"{ref_row['component']}:{col}",
-            )
-
-
-def test_evaluator_with_our_gp(tmp_path):
+def test_evaluator_with_our_gp(tmp_path, flight_csv):
     """Our JAX GP through the evaluator: must improve over nominal in-sample
     and write the reference CSV layout."""
-    X, Y = load_gp_dataset(REF_CSV)
+    X, Y = load_gp_dataset(flight_csv)
     Xj, Yj = jnp.asarray(X[:400]), jnp.asarray(Y[:400])
     post = fit_residual_gp(Xj, Yj)
     results = evaluate_gp(
@@ -105,8 +62,8 @@ def test_evaluate_gp_residuals_identities(rng):
     assert zero["global"]["mse_nom"] == pytest.approx(zero["global"]["mse_gp"])
 
 
-def test_per_dim_gp_fits_and_predicts():
-    X, Y = load_gp_dataset(REF_CSV)
+def test_per_dim_gp_fits_and_predicts(flight_csv):
+    X, Y = load_gp_dataset(flight_csv)
     Xtr, Ytr = jnp.asarray(X[:250]), jnp.asarray(Y[:250])
     Xte, Yte = jnp.asarray(X[250:300]), jnp.asarray(Y[250:300])
 
@@ -162,27 +119,32 @@ def test_metrics_summaries(rng):
     assert g["rmse"] > 0
 
 
-def test_metrics_csv_files_skipped_in_multi_load(tmp_path):
+def test_metrics_csv_files_skipped_in_multi_load(tmp_path, flight_csv):
     """The gp_datasets dir mixes flight CSVs with *_metrics.csv analysis
     outputs (9 columns); the multi-file loader must skip those (found by
     driving the fly CLI with the default glob)."""
     import warnings
     from unmanned_aerial_vehicles_tpu.io import load_gp_datasets
 
+    metrics = str(tmp_path / "flight_metrics.csv")
+    with open(metrics, "w") as f:
+        f.write("component,mse_nom,mse_gp,rmse_nom,rmse_gp,improvement_%,"
+                "r2_nom,r2_gp,frac_better\n")
+        f.write("dx,1,1,1,1,0,0,0,0\n")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        X, Y = load_gp_datasets([REF_CSV, REF_METRICS])
-    X_only, _ = load_gp_datasets([REF_CSV])
+        X, Y = load_gp_datasets([flight_csv, metrics])
+    X_only, _ = load_gp_datasets([flight_csv])
     assert X.shape == X_only.shape
 
 
-def test_per_dim_residuals_drive_mpc():
+def test_per_dim_residuals_drive_mpc(flight_csv):
     from unmanned_aerial_vehicles_tpu.gp import (
         build_horizon_residuals_per_dim,
         fit_per_dim_gp,
     )
 
-    X, Y = load_gp_dataset(REF_CSV)
+    X, Y = load_gp_dataset(flight_csv)
     model = fit_per_dim_gp(jnp.asarray(X[:200]), jnp.asarray(Y[:200]))
     Xg = jnp.tile(jnp.asarray(X[0, :6])[None, :], (11, 1))
     Ug = jnp.tile(jnp.asarray(X[0, 6:10])[None, :], (10, 1))
@@ -193,9 +155,9 @@ def test_per_dim_residuals_drive_mpc():
     assert float(jnp.max(jnp.abs(D[:, 3:6]))) > 0
 
 
-def test_per_dim_gp_with_hyperopt():
+def test_per_dim_gp_with_hyperopt(flight_csv):
     """The optimize=True path: vmapped per-dimension ARD LML ascent."""
-    X, Y = load_gp_dataset(REF_CSV)
+    X, Y = load_gp_dataset(flight_csv)
     Xtr, Ytr = jnp.asarray(X[:120]), jnp.asarray(Y[:120])
     Xte, Yte = jnp.asarray(X[120:160]), jnp.asarray(Y[120:160])
 

@@ -1,8 +1,6 @@
-"""GP parity tests: sklearn posterior/LML to 1e-6 on real flight data,
+"""GP parity tests: sklearn posterior/LML to 1e-6 on flight data,
 hyperparameter optimisation, ring-buffer filters, horizon residuals,
 checkpoint round-trip (SURVEY.md section 7 stage 3)."""
-
-import glob
 
 import jax
 import jax.numpy as jnp
@@ -30,12 +28,14 @@ from unmanned_aerial_vehicles_tpu.io import (
     save_gp_checkpoint,
 )
 
-DATASETS = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))
-
 
 @pytest.fixture(scope="module")
-def flight_data():
-    X, Y = load_gp_dataset(DATASETS[0])
+def flight_data(flight_csvs):
+    """The first synthetic flight CSV, read back through the loader. Like
+    the reference's CSVs it records a constant yawrate command."""
+    X, Y = load_gp_dataset(flight_csvs[0])
+    X = X.copy()
+    X[:, 9] = 0.0
     return X[:300], Y[:300], X[300:350], Y[300:350]
 
 
@@ -217,8 +217,8 @@ def test_standardized_params_half_full_buffer(flight_data):
     cfg = ResidualGPConfig()
     ls = np.asarray(standardized_params(ds, cfg).length_scale)
     std = np.asarray(X[:n]).std(axis=0)
-    # the flight CSVs' constant yawrate column (std ~1e-19) exercises the
-    # degenerate-dim fallback: plain RBF distance on that lane
+    # the constant yawrate column exercises the degenerate-dim fallback:
+    # plain RBF distance on that lane
     expected = cfg.length_scale * np.where(std > 1e-8, std, 1.0)
     np.testing.assert_allclose(ls, expected, rtol=1e-6)
 
@@ -257,12 +257,10 @@ def test_hyperopt_restarts_at_least_as_good(flight_data):
     assert float(nll_multi) <= float(nll_single) + 1e-6
 
 
-def test_output_correction_generation():
+def test_output_correction_generation(flight_csvs):
     """The reference's earlier GP-MPC generation (mpc_gp.py:341-372, byte-
     identical to mpc_original.py): GP corrects the solved control POST-solve.
     Checks the gates and that the two GP modes genuinely differ in flight."""
-    import glob
-
     from unmanned_aerial_vehicles_tpu.gp import (
         OutputCorrectionConfig,
         build_horizon_residuals,
@@ -279,11 +277,8 @@ def test_output_correction_generation():
     from unmanned_aerial_vehicles_tpu.loop import mpc_flight_rollout
     from unmanned_aerial_vehicles_tpu.trajectories import ramped_figure8_reference
 
-    paths = sorted(glob.glob("/root/reference/gp_datasets/*.csv"))
-    if not paths:
-        pytest.skip("reference gp_datasets not mounted")
     cfg = ResidualGPConfig()
-    X, Y = load_gp_datasets(paths, max_samples=600)
+    X, Y = load_gp_datasets(flight_csvs, max_samples=600)
     post = fit_residual_gp(jnp.asarray(X), jnp.asarray(Y), cfg)
 
     state = jnp.zeros(6).at[2].set(3.0).at[3].set(0.5)

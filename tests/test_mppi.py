@@ -130,44 +130,3 @@ def test_mppi_nominal_trajectory_flag():
     u2, X2, _ = jax.jit(lambda: diag.solve(diag.init_carry(x0), x0, tgt))()
     assert X2.shape == (CFG.horizon + 1, 12)
     np.testing.assert_array_equal(np.asarray(u), np.asarray(u2))
-
-
-def test_mppi_fused_rollout_costs_match_vmapped_scan():
-    """The fused Pallas sampling kernel (ops.mppi_pallas, interpret mode on
-    CPU) reproduces the vmapped-XLA rollout costs — including wind, the
-    yaw wrap, and the terminal weight — to f32 grade."""
-    from unmanned_aerial_vehicles_tpu.models import RigidBodyParams
-    from unmanned_aerial_vehicles_tpu.ops.mppi_pallas import (
-        mppi_rollout_costs_fused,
-    )
-
-    params = RigidBodyParams(wind=(0.4, -0.2, 0.1))
-    cfg = MPPIConfig(horizon=9, num_samples=128)
-    ctrl = MPPIController(cfg, params=params)
-    rng = np.random.default_rng(3)
-    x0 = jnp.asarray(
-        np.concatenate([rng.normal(0, 0.5, 3) + [0, 0, 2.0],
-                        rng.normal(0, 0.3, 3),
-                        rng.normal(0, 0.2, 3),
-                        rng.normal(0, 0.1, 3)]), jnp.float32)
-    U = jnp.clip(
-        ctrl.u_hover[None, None, :]
-        + jnp.asarray(rng.normal(0, 1.0, (128, 9, 4)) *
-                      np.array([3.0, 0.05, 0.05, 0.02]), jnp.float32),
-        ctrl.u_lo, ctrl.u_hi)
-    targets = jnp.asarray(rng.normal(0, 1.0, (9, 3)) + [0, 0, 2.0],
-                          jnp.float32)
-    yaw = jnp.float32(2.9)   # near the wrap point
-
-    want = np.asarray(jax.vmap(
-        lambda Us: ctrl._rollout_cost(x0, Us, targets, yaw))(U))
-    got = np.asarray(mppi_rollout_costs_fused(
-        x0, U, targets, yaw, params, cfg.dt, ctrl.u_hover,
-        (cfg.q_pos, cfg.q_vel, cfg.q_att, cfg.q_yaw, cfg.q_rate,
-         *cfg.r_control, cfg.terminal_weight), interpret=True))
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-3)
-
-    # eligibility gates: CPU backend and traced params must fall back
-    assert ctrl._use_fused() is False          # cpu backend in tests
-    bad = MPPIController(MPPIConfig(num_samples=100))
-    assert bad._use_fused() is False

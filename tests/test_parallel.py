@@ -85,8 +85,8 @@ def test_sharded_flight_sweep_matches_single_flights():
 
 
 def test_sharded_structured_sweep_matches_vmapped():
-    """The structured-kernel throughput sweep under shard_map agrees with
-    the plain vmapped rollout across the mesh (kernels inside shard_map)."""
+    """The batched throughput sweep under shard_map agrees with the plain
+    vmapped rollout across the mesh."""
     import jax.numpy as jnp
 
     from unmanned_aerial_vehicles_tpu.control.mpc_linear import (
@@ -105,19 +105,18 @@ def test_sharded_structured_sweep_matches_vmapped():
         return pos + jnp.array([0.0, 0.0, 3.0]), yaw
 
     kw = dict(horizon=10, admm_iterations=40)
-    fused = LinearMPC(LinearMPCConfig(**kw, use_fused_controller=True))
-    staged = LinearMPC(LinearMPCConfig(**kw))
+    mpc = LinearMPC(LinearMPCConfig(**kw))
     B, T = 16, 25
     starts = jnp.zeros((B, 12), jnp.float32).at[:, 2].set(3.0)
     starts = starts.at[:, 0].set(jnp.linspace(-0.5, 0.5, B, dtype=jnp.float32))
 
     mesh = make_mesh()
     out_k = sharded_structured_flight_sweep(
-        mesh, fused, ref, T, starts, cfg=FlightLoopConfig()
+        mesh, mpc, ref, T, starts, cfg=FlightLoopConfig()
     )
     out_v = sharded_flight_sweep(
         mesh,
-        lambda x0: mpc_flight_rollout(staged, ref, T, cfg=FlightLoopConfig(),
+        lambda x0: mpc_flight_rollout(mpc, ref, T, cfg=FlightLoopConfig(),
                                       initial_state=x0),
         starts,
     )

@@ -1,9 +1,8 @@
 """Multi-tick (per-dispatch-relinearisation) tier for the 12-state family.
 
 RMS parity of ``loop.rigid_loop.sqp_multitick_rollout`` against the per-tick
-staged SQP engines on the circle task — the same accuracy treatment the
-in-kernel EKF's per-dispatch relinearisation got (bounded by test, not
-assumed). Also pins the structural claim that motivates the tier: with the
+staged SQP engines on the circle task (the per-dispatch relinearisation is
+bounded by test, not assumed). Also pins the structural claim that motivates the tier: with the
 equilibration frozen across a dispatch, ADMM duals warm-start across ticks
 and the iteration count stops mattering (30 vs 80 identical).
 """
@@ -139,9 +138,9 @@ def test_ilqr_multitick_policy_parity():
 
 def test_ilqr_multitick_iteration_invariance():
     """The dispatch-carried warm start (shifted U_prev) makes the policy
-    tier ITERATION-invariant, the same result the staged engines showed
-    per tick (NOTES: 6/3/2/1 iterations identical RMS). Justifies the
-    1-iteration sub-0.3 ms tier (v5e: 516 -> 258 us/tick at K=2)."""
+    loop ITERATION-invariant, the same result the per-tick engines show
+    (6/3/2/1 iterations identical RMS), which justifies flying it at one
+    iteration."""
     plant = lambda x, u: rigid_body_rk4_step(x, u, X500_PARAMS, DT)
 
     def position_ref_fn(ticks):
@@ -257,96 +256,6 @@ def test_multitick_rejects_obstacles_without_rows():
         )
 
 
-def _dr_reference_fn(N):
-    def reference_fn(ticks):
-        ts = ticks.astype(jnp.float32) * DT
-        pos, _, _ = jax.vmap(
-            lambda t: ramped_circle_reference(t, amplitude=2.0, height=H)
-        )(ts)
-        stage = jnp.concatenate([pos, jnp.zeros((ts.shape[0], 9))], axis=1)
-        return jnp.tile(stage[:, None, :], (1, N, 1))
-    return reference_fn
-
-
-def test_direct_rate_fused_matches_staged():
-    """The in-kernel direct-rate multitick tier
-    (``direct_rate_multitick_fused``) replicates the staged tier's algebra
-    exactly: same shift, same scaled-space ADMM, same composite operator —
-    per-tick control and state trajectories must agree to f32 accumulation
-    noise over a multi-dispatch closed loop."""
-    from unmanned_aerial_vehicles_tpu.loop.rigid_loop import (
-        direct_rate_multitick_fused,
-    )
-
-    eng = DirectRateMPC()
-    plant = lambda x, u: direct_rate_step(
-        x, u, jnp.zeros(12, jnp.float32), dt=DT
-    )
-    N = eng.mpc.config.horizon
-    reference_fn = _dr_reference_fn(N)
-    x0 = jnp.zeros(12, jnp.float32).at[2].set(H)
-    T_par, K = 24, 4
-
-    staged = jax.jit(lambda x: sqp_multitick_rollout(
-        eng.mpc, eng.cost, reference_fn, plant, x, T_par,
-        ticks_per_dispatch=K, admm_iterations=30, u_init=eng.u_hover,
-    ))(x0)
-    fused = jax.jit(lambda x: direct_rate_multitick_fused(
-        eng.mpc, eng.cost, reference_fn, x, T_par,
-        ticks_per_dispatch=K, admm_iterations=30, u_init=eng.u_hover,
-        dt=DT,
-    ))(x0)
-
-    du = np.abs(np.asarray(staged["u"]) - np.asarray(fused["u"])).max()
-    dx = np.abs(
-        np.asarray(staged["state"]) - np.asarray(fused["state"])
-    ).max()
-    assert du < 2e-3, du
-    assert dx < 2e-3, dx
-    assert np.isfinite(np.asarray(fused["state"])).all()
-
-
-def test_direct_rate_fused_closed_loop_rms():
-    """Longer-horizon sanity: the fused tier flies the circle task at the
-    same RMS as the staged tier (the per-dispatch anchor dominates both)."""
-    from unmanned_aerial_vehicles_tpu.loop.rigid_loop import (
-        direct_rate_multitick_fused,
-    )
-
-    eng = DirectRateMPC()
-    N = eng.mpc.config.horizon
-    reference_fn = _dr_reference_fn(N)
-    x0 = jnp.zeros(12, jnp.float32).at[2].set(H)
-    outs = jax.jit(lambda x: direct_rate_multitick_fused(
-        eng.mpc, eng.cost, reference_fn, x, T,
-        ticks_per_dispatch=8, admm_iterations=30, u_init=eng.u_hover,
-        dt=DT,
-    ))(x0)
-    ps = np.asarray(outs["state"])[:, 0:3]
-    rs = np.stack([np.asarray(_ref(t * DT)[0]) for t in range(T)])
-    rms = float(np.sqrt(np.mean(np.sum((ps - rs) ** 2, -1))))
-    plant = lambda x, u: direct_rate_step(
-        x, u, jnp.zeros(12, jnp.float32), dt=DT
-    )
-    rms_staged = _multitick_rms(eng, plant, T, K=8, iters=30)
-    assert abs(rms - rms_staged) < 5e-3, (rms, rms_staged)
-
-
-def test_direct_rate_fused_rejects_f64_and_obstacles():
-    from unmanned_aerial_vehicles_tpu.control import LTVTrackingMPC
-    from unmanned_aerial_vehicles_tpu.loop.rigid_loop import (
-        direct_rate_multitick_fused,
-    )
-
-    eng = DirectRateMPC()
-    con = LTVTrackingMPC(num_obstacles=1)
-    with pytest.raises(ValueError, match="no obstacle rows"):
-        direct_rate_multitick_fused(
-            con.mpc, con.cost, lambda t: jnp.zeros((4, 15, 12)),
-            jnp.zeros(12), 8, ticks_per_dispatch=4,
-        )
-
-
 def test_attitude_recovery_fallback_levels_off():
     """The in-graph emergency law (reference solver-failure hover,
     mpc_controller.py:296-316): from a badly tipped state with garbage
@@ -391,10 +300,11 @@ def test_attitude_recovery_fallback_levels_off():
     assert abs(float(x_fin[6])) < 1.0, x_fin[6]
 
 
-def test_plan_roll_linear_mode_tracks():
-    """plan_roll="linear" (LTV extrapolation re-anchor) must fly the same
-    task at comparable RMS to the default nonlinear roll — the modes
-    differ only in anchor quality, not in the per-tick solve."""
+def test_plan_roll_fn_replaces_default_roll():
+    """``plan_roll_fn`` replaces the default re-anchor roll (a scan of
+    ``mpc.step_fn``): passing that same roll must reproduce the default
+    flight exactly, and a roll through the true plant must fly the task
+    at comparable RMS (the rolls differ only in anchor quality)."""
     eng = RigidBodyMPC()
     plant = lambda x, u: rigid_body_rk4_step(x, u, X500_PARAMS, DT)
     N = eng.mpc.config.horizon
@@ -405,89 +315,32 @@ def test_plan_roll_linear_mode_tracks():
         stage = jnp.concatenate([pos, jnp.zeros((ts.shape[0], 9))], axis=1)
         return jnp.tile(stage[:, None, :], (1, N, 1))
 
-    def rms_of(mode):
+    def same_roll(x_fin, U_fin, residuals):
+        def body(xc, inp):
+            xn = eng.mpc.step_fn(xc, *inp)
+            return xn, xn
+        return jax.lax.scan(body, x_fin, (U_fin, residuals))[1]
+
+    def plant_roll(x_fin, U_fin, residuals):
+        def body(xc, u):
+            xn = plant(xc, u)
+            return xn, xn
+        return jax.lax.scan(body, x_fin, U_fin)[1]
+
+    def fly(roll):
         x0 = jnp.zeros(12, jnp.float64).at[2].set(H)
         outs = jax.jit(lambda x: sqp_multitick_rollout(
             eng.mpc, eng.cost, reference_fn, plant, x, T,
             ticks_per_dispatch=8, admm_iterations=30, u_init=eng.u_hover,
-            plan_roll=mode,
+            plan_roll_fn=roll,
         ))(x0)
-        ps = np.asarray(outs["state"])[:, 0:3]
+        return np.asarray(outs["state"])[:, 0:3]
+
+    def rms(ps):
         rs = np.stack([np.asarray(_ref(t * DT)[0]) for t in range(T)])
         return float(np.sqrt(np.mean(np.sum((ps - rs) ** 2, -1))))
 
-    r_nl, r_lin = rms_of("nonlinear"), rms_of("linear")
-    assert np.isfinite(r_lin) and np.isfinite(r_nl)
-    assert abs(r_lin - r_nl) < 0.05, (r_nl, r_lin)
-    with pytest.raises(ValueError, match="plan_roll"):
-        rms_of("quadratic")
-
-
-def test_rigid_fused_matches_staged():
-    """The whole-tick-in-kernel tier for the TORQUE family
-    (``rigid_multitick_fused``): the in-kernel plant is RK4 of the rigid
-    body via the shared ``make_plant_math``, the controller algebra is the
-    direct-rate kernel's — per-tick control and state trajectories must
-    agree with the staged ``sqp_multitick_rollout`` flown on
-    ``rigid_body_rk4_step`` to f32 accumulation noise."""
-    from unmanned_aerial_vehicles_tpu.loop.rigid_loop import (
-        rigid_multitick_fused,
-    )
-
-    eng = RigidBodyMPC()
-    plant = lambda x, u: rigid_body_rk4_step(x, u, X500_PARAMS, DT)
-    N = eng.mpc.config.horizon
-    reference_fn = _dr_reference_fn(N)
-    x0 = jnp.zeros(12, jnp.float32).at[2].set(H)
-    T_par, K = 24, 4
-
-    staged = jax.jit(lambda x: sqp_multitick_rollout(
-        eng.mpc, eng.cost, reference_fn, plant, x, T_par,
-        ticks_per_dispatch=K, admm_iterations=30, u_init=eng.u_hover,
-    ))(x0)
-    fused = jax.jit(lambda x: rigid_multitick_fused(
-        eng.mpc, eng.cost, reference_fn, x, T_par,
-        ticks_per_dispatch=K, admm_iterations=30, u_init=eng.u_hover,
-        dt=DT,
-    ))(x0)
-
-    du = np.abs(np.asarray(staged["u"]) - np.asarray(fused["u"])).max()
-    dx = np.abs(
-        np.asarray(staged["state"]) - np.asarray(fused["state"])
-    ).max()
-    assert du < 2e-3, du
-    assert dx < 2e-3, dx
-    assert np.isfinite(np.asarray(fused["state"])).all()
-
-
-def test_rigid_fused_closed_loop_rms():
-    """The fused torque tier flies the circle task at the staged tier's RMS
-    (linear plan re-anchor on both, the tracking configuration)."""
-    from unmanned_aerial_vehicles_tpu.loop.rigid_loop import (
-        rigid_multitick_fused,
-    )
-
-    eng = RigidBodyMPC()
-    plant = lambda x, u: rigid_body_rk4_step(x, u, X500_PARAMS, DT)
-    N = eng.mpc.config.horizon
-    reference_fn = _dr_reference_fn(N)
-    x0 = jnp.zeros(12, jnp.float32).at[2].set(H)
-    T_rms, K = 240, 8
-
-    def rms_of(outs):
-        ps = np.asarray(outs["state"])[:, 0:3]
-        rs = np.stack([np.asarray(_ref(t * DT)[0]) for t in range(T_rms)])
-        return float(np.sqrt(np.mean(np.sum((ps - rs) ** 2, -1))))
-
-    staged = jax.jit(lambda x: sqp_multitick_rollout(
-        eng.mpc, eng.cost, reference_fn, plant, x, T_rms,
-        ticks_per_dispatch=K, admm_iterations=30, u_init=eng.u_hover,
-        plan_roll="linear",
-    ))(x0)
-    fused = jax.jit(lambda x: rigid_multitick_fused(
-        eng.mpc, eng.cost, reference_fn, x, T_rms,
-        ticks_per_dispatch=K, admm_iterations=30, u_init=eng.u_hover,
-        dt=DT, plan_roll="linear",
-    ))(x0)
-    r_staged, r_fused = rms_of(staged), rms_of(fused)
-    assert abs(r_staged - r_fused) < 5e-3, (r_staged, r_fused)
+    default, same, through_plant = fly(None), fly(same_roll), fly(plant_roll)
+    np.testing.assert_array_equal(default, same)
+    assert np.isfinite(through_plant).all()
+    assert abs(rms(through_plant) - rms(default)) < 0.05

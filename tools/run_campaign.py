@@ -1,20 +1,19 @@
 """Regenerate the campaign artifacts (flights, comparisons, metrics summary).
 
 Reproduces the reference's experiment campaign (BASELINE.md rows) on the
-TPU-surrogate stack and writes, under ``artifacts/``:
+PX4-surrogate stack and writes, under ``artifacts/`` (or ``--out``):
 
 * ``<run>.npz``      — flight logs (the rosbag analogue)
 * ``<run>.png``      — analysis figure per flight
 * ``comparison_<traj>.png`` — standalone PID-vs-GPMPC comparison panels
 * ``metrics_summary.json``  — ours vs the published reference baselines
 
-Run:  PYTHONPATH=. python tools/run_campaign.py [--duration 132]
+Run:  python tools/run_campaign.py [--duration 132] [--out DIR]
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import os
 import sys
@@ -25,12 +24,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
+from unmanned_aerial_vehicles_tpu.backend import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 from unmanned_aerial_vehicles_tpu.control.mpc_linear import LinearMPC, LinearMPCConfig
 from unmanned_aerial_vehicles_tpu.gp import build_horizon_residuals, fit_residual_gp
 from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig
-from unmanned_aerial_vehicles_tpu.io import load_gp_datasets, save_flight_log
+from unmanned_aerial_vehicles_tpu.io import (
+    load_gp_datasets,
+    save_flight_log,
+    synthetic_corpus,
+)
 from unmanned_aerial_vehicles_tpu.loop import (
     FlightLoopConfig,
     OnlineGPMPCConfig,
@@ -52,6 +57,7 @@ from unmanned_aerial_vehicles_tpu.trajectories import (
 )
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "artifacts")
+FIGURES = True    # --no-figures: logs and metrics only (no matplotlib)
 
 REFERENCE_BASELINES = {
     "mpc_flight_figure8": {
@@ -84,11 +90,12 @@ def _metrics(outs) -> dict:
 def _save(name: str, outs) -> None:
     log = {k: np.asarray(v) for k, v in outs.items()}
     save_flight_log(os.path.join(ARTIFACTS, f"{name}.npz"), log)
-    plot_flight_log(log, os.path.join(ARTIFACTS, f"{name}.png"), title=name)
+    if FIGURES:
+        plot_flight_log(log, os.path.join(ARTIFACTS, f"{name}.png"), title=name)
 
 
-def _gusty_rows(summary, args, cfg, num_steps, fig8, mpc_fused, windy,
-                oracle_residual, fused_cfg) -> None:
+def _gusty_rows(summary, args, cfg, num_steps, fig8, mpc20, windy,
+                oracle_residual) -> None:
     """(f) GUSTS — time-varying wind (wind_fn=), a step change mid-flight.
 
     This is the scenario that separates the observer from ANY frozen model:
@@ -96,9 +103,7 @@ def _gusty_rows(summary, args, cfg, num_steps, fig8, mpc_fused, windy,
     (the ceiling for anything learned before the gust — including the
     reference's 5 s-stale retrain, gaussian_process.py:122); the observer
     re-converges in-flight. Gated on the POST-gust window: observer beats
-    plain AND beats the stale oracle. The fused row flies the SAME
-    observer+gust at the latency tier (per-tick plant rows + 15-state
-    filter inside the multi-tick kernel) and must glue to the staged row.
+    plain AND beats the stale oracle.
     """
     from unmanned_aerial_vehicles_tpu.estimation import (
         EKFConfig,
@@ -115,13 +120,11 @@ def _gusty_rows(summary, args, cfg, num_steps, fig8, mpc_fused, windy,
     # settle 6 s after the gust, then measure to the end of the flight
     i_post = int((t_gust + 6.0) / cfg.control_dt)
 
-    def gusty_row(name, dob, res_fn, loop_cfg=None, ogp=None):
+    def gusty_row(name, dob, res_fn, ogp=None):
         o = jax.jit(
             lambda: noisy_mpc_flight_rollout(
-                mpc_fused, fig8, num_steps, jax.random.PRNGKey(2),
-                ekf_cfg=EKFConfig(), body=windy,
-                cfg=(fused_cfg.replace(use_fused_tick=False)
-                     if loop_cfg is None else loop_cfg),
+                mpc20, fig8, num_steps, jax.random.PRNGKey(2),
+                ekf_cfg=EKFConfig(), body=windy, cfg=cfg,
                 preview=True, disturbance_observer=dob,
                 residual_fn=res_fn, wind_fn=gust_wind,
                 online_gp=ogp, gp_gain=1.0 if ogp is not None else 0.1,
@@ -146,16 +149,14 @@ def _gusty_rows(summary, args, cfg, num_steps, fig8, mpc_fused, windy,
     gusty_row("mpc_noisy_gusty_figure8", None, None)
     gusty_row("mpc_stale_oracle_gusty_figure8", None, oracle_residual)
     gusty_row("mpc_dob_noisy_gusty_figure8", True, None)
-    # the latency tier: same observer+gust INSIDE the multi-tick kernel
-    gusty_row("mpc_dob_gusty_fused_figure8", True, None, loop_cfg=fused_cfg)
-    # in-flight ONLINE learning under the gust (fused tier — the ring
-    # buffer turns over in ~2.6 s, so unlike the stale oracle this model
-    # is NOT frozen; the honest comparison for the observer's
-    # "adapts to wind never seen" claim)
+    # in-flight ONLINE learning under the gust (the ring buffer turns over
+    # in ~2.6 s, so unlike the stale oracle this model is NOT frozen; the
+    # honest comparison for the observer's "adapts to wind never seen"
+    # claim)
     from unmanned_aerial_vehicles_tpu.loop import OnlineFusedGPConfig
 
     gusty_row(
-        "gpmpc_online_gusty_figure8", None, None, loop_cfg=fused_cfg,
+        "gpmpc_online_gusty_figure8", None, None,
         ogp=OnlineFusedGPConfig(
             gp=ResidualGPConfig(max_data_points=128, residual_gain=1.0),
             refit_every=64,
@@ -166,13 +167,10 @@ def _gusty_rows(summary, args, cfg, num_steps, fig8, mpc_fused, windy,
 def _gust_gates(summary) -> None:
     # gust gates (post-gust window): the observer must beat the plain
     # flight AND the stale oracle — the PERFECT pre-gust model — because
-    # only the observer adapts to wind it has never seen; both on the
-    # staged path and at the latency tier
+    # only the observer adapts to wind it has never seen
     for a, b in (
         ("mpc_dob_noisy_gusty_figure8", "mpc_noisy_gusty_figure8"),
         ("mpc_dob_noisy_gusty_figure8", "mpc_stale_oracle_gusty_figure8"),
-        ("mpc_dob_gusty_fused_figure8", "mpc_noisy_gusty_figure8"),
-        ("mpc_dob_gusty_fused_figure8", "mpc_stale_oracle_gusty_figure8"),
         # in-flight RELEARNING (ring turnover ~2.6 s) also survives the
         # gust — unlike the frozen stale oracle
         ("gpmpc_online_gusty_figure8", "mpc_noisy_gusty_figure8"),
@@ -182,14 +180,6 @@ def _gust_gates(summary) -> None:
         gb = summary[b]["rms_pos_postgust"]
         status = "BEATS" if ga < gb else "WORSE THAN"
         print(f"{a}: {ga:.3f} m {status} {b} {gb:.3f} m (post-gust)")
-    # and the fused row must GLUE to the staged row (same config, same
-    # PRNG; the kernel's per-tick plant rows are a semantics-preserving
-    # execution tier, not a different controller)
-    ga = summary["mpc_dob_gusty_fused_figure8"]["rms_pos_postgust"]
-    gb = summary["mpc_dob_noisy_gusty_figure8"]["rms_pos_postgust"]
-    status = "TIES" if abs(ga - gb) < max(0.05, 0.1 * gb) else "DIVERGES FROM"
-    print(f"mpc_dob_gusty_fused_figure8: {ga:.3f} m {status} staged "
-          f"{gb:.3f} m (post-gust)")
 
 
 def _note(duration: float) -> str:
@@ -206,9 +196,7 @@ def _note(duration: float) -> str:
         "(randomized mass/drag/lags/wind, loop.monte_carlo); "
         "*_gusty rows fly a wind step-change at duration/2 and "
         "rms_pos_postgust measures from 6 s after the step to the "
-        "end (mpc_dob_gusty_fused runs the observer+gust INSIDE the "
-        "fused multi-tick kernel; gpmpc_online_gusty relearns "
-        "in-flight through the gust)"
+        "end (gpmpc_online_gusty relearns in-flight through the gust)"
     )
 
 
@@ -217,12 +205,9 @@ def _gusty_inputs(cfg):
     from unmanned_aerial_vehicles_tpu.models import RigidBodyParams
 
     windy = RigidBodyParams(wind=(1.5, 0.8, 0.0))
-    mpc_fused = LinearMPC(
-        LinearMPCConfig(horizon=20, admm_iterations=60,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
+    mpc20 = LinearMPC(
+        LinearMPCConfig(horizon=20, admm_iterations=60), dtype=jnp.float32,
     )
-    fused_cfg = FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8)
     kd = windy.k_drag_linear / windy.mass
     wvec = jnp.asarray(windy.wind[:3], jnp.float32)
 
@@ -238,19 +223,29 @@ def _gusty_inputs(cfg):
         )
         return jnp.zeros((n_st, 6), jnp.float32).at[:, 3:6].set(a_res)
 
-    return windy, mpc_fused, fused_cfg, oracle_residual
+    return windy, mpc20, oracle_residual
 
 
 def main() -> int:
+    global ARTIFACTS, FIGURES
     ap = argparse.ArgumentParser()
     ap.add_argument("--duration", type=float, default=132.0)
-    ap.add_argument("--gp-data", default="/root/reference/gp_datasets/*.csv")
+    ap.add_argument("--gp-data", default="synthetic",
+                    help="CSV glob in the gp_datasets schema, or 'synthetic' "
+                         "for the seeded excitation corpus")
+    ap.add_argument("--out", default=ARTIFACTS,
+                    help="directory for the logs, figures and summary")
+    ap.add_argument("--no-figures", action="store_true",
+                    help="write logs and metrics only (no matplotlib needed)")
     ap.add_argument(
         "--only-gusty", action="store_true",
         help="recompute ONLY the gusty rows (deterministic seeds) and merge "
              "into the existing metrics_summary.json",
     )
     args = ap.parse_args()
+    ARTIFACTS = args.out
+    FIGURES = not args.no_figures
+    os.makedirs(ARTIFACTS, exist_ok=True)
 
     cfg = FlightLoopConfig()
     num_steps = int(args.duration / cfg.control_dt)
@@ -265,9 +260,9 @@ def main() -> int:
         with open(out_path) as f:
             payload = json.load(f)
         summary = payload["ours"]
-        windy_g, mpc_fused_g, fused_cfg_g, oracle_g = _gusty_inputs(cfg)
-        _gusty_rows(summary, args, cfg, num_steps, fig8, mpc_fused_g,
-                    windy_g, oracle_g, fused_cfg_g)
+        windy_g, mpc20_g, oracle_g = _gusty_inputs(cfg)
+        _gusty_rows(summary, args, cfg, num_steps, fig8, mpc20_g,
+                    windy_g, oracle_g)
         payload["note"] = _note(args.duration)
         with open(out_path, "w") as f:
             json.dump(payload, f, indent=2)
@@ -280,10 +275,15 @@ def main() -> int:
                                               height=cfg.takeoff_height)
         return pos, yaw
 
-    # --- GP posterior from the reference's offline corpus -----------------
+    # --- GP posterior from the offline corpus ------------------------------
     gp_cfg = ResidualGPConfig()
-    paths = sorted(glob.glob(args.gp_data))
-    X, Y = load_gp_datasets(paths, max_samples=gp_cfg.max_data_points)
+    if args.gp_data == "synthetic":
+        X, Y = synthetic_corpus(max_samples=gp_cfg.max_data_points)
+    else:
+        import glob
+
+        X, Y = load_gp_datasets(sorted(glob.glob(args.gp_data)),
+                                max_samples=gp_cfg.max_data_points)
     post = jax.jit(lambda x, y: fit_residual_gp(x, y, gp_cfg))(
         jnp.asarray(X, jnp.float32), jnp.asarray(Y, jnp.float32)
     )
@@ -371,10 +371,11 @@ def main() -> int:
     for traj in ("figure8", "circle", "hover", "step"):
         outs = jax.jit(lambda tt=traj: run_comparison(tt, duration=30.0))()
         summary[f"comparison_{traj}"] = comparison_summary(outs)
-        plot_comparison(
-            {k: np.asarray(v) for k, v in outs.items()},
-            os.path.join(ARTIFACTS, f"comparison_{traj}.png"), traj,
-        )
+        if FIGURES:
+            plot_comparison(
+                {k: np.asarray(v) for k, v in outs.items()},
+                os.path.join(ARTIFACTS, f"comparison_{traj}.png"), traj,
+            )
         print(f"comparison_{traj}", json.dumps(summary[f"comparison_{traj}"]))
 
     # --- online in-flight learning with preview ----------------------------
@@ -458,7 +459,7 @@ def main() -> int:
     plain_row("mpc_preview_windy_figure8", windy)
     online_row("gpmpc_online_windy_figure8", windy)
 
-    # (c) round-4 windy-recovery rows, all on the FUSED multi-tick tier:
+    # (c) windy-recovery rows at N=20:
     #     - fresh refits (128-pt ring, 64-tick retrain) push recovery past
     #       the round-3 0.865 m figure that NOTES attributed to GP input
     #       locality;
@@ -471,17 +472,14 @@ def main() -> int:
     #       with a measurement instead of a hypothesis).
     from unmanned_aerial_vehicles_tpu.loop import OnlineFusedGPConfig
 
-    mpc_fused = LinearMPC(
-        LinearMPCConfig(horizon=20, admm_iterations=60,
-                        use_fused_controller=True),
-        dtype=jnp.float32,
+    mpc20 = LinearMPC(
+        LinearMPCConfig(horizon=20, admm_iterations=60), dtype=jnp.float32,
     )
-    fused_cfg = FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8)
 
-    def online_fused_row(name, ogp):
+    def online_n20_row(name, ogp):
         o = jax.jit(
             lambda: mpc_flight_rollout(
-                mpc_fused, fig8, num_steps, body=windy, cfg=fused_cfg,
+                mpc20, fig8, num_steps, body=windy, cfg=cfg,
                 preview=True, online_gp=ogp, gp_gain=1.0,
             )
         )()
@@ -497,14 +495,14 @@ def main() -> int:
         _save(name, o)
         print(name, json.dumps(summary[name]))
 
-    online_fused_row(
+    online_n20_row(
         "gpmpc_online_fresh_windy_figure8",
         OnlineFusedGPConfig(
             gp=ResidualGPConfig(max_data_points=128, residual_gain=1.0),
             refit_every=64,
         ),
     )
-    online_fused_row(
+    online_n20_row(
         "gpmpc_online_scaled_windy_figure8",
         OnlineFusedGPConfig(
             gp=ResidualGPConfig(max_data_points=128, residual_gain=1.0),
@@ -529,8 +527,7 @@ def main() -> int:
 
     o = jax.jit(
         lambda: mpc_flight_rollout(
-            mpc_fused, fig8, num_steps, body=windy,
-            cfg=FlightLoopConfig(use_fused_tick=True), preview=True,
+            mpc20, fig8, num_steps, body=windy, cfg=cfg, preview=True,
             residual_fn=oracle_residual,
         )
     )()
@@ -558,8 +555,8 @@ def main() -> int:
     def noisy_windy_row(name, ogp):
         o = jax.jit(
             lambda: noisy_mpc_flight_rollout(
-                mpc_fused, fig8, num_steps, jax.random.PRNGKey(2),
-                ekf_cfg=EKFConfig(), body=windy, cfg=fused_cfg,
+                mpc20, fig8, num_steps, jax.random.PRNGKey(2),
+                ekf_cfg=EKFConfig(), body=windy, cfg=cfg,
                 preview=True, online_gp=ogp, gp_gain=1.0,
             )
         )()
@@ -591,13 +588,11 @@ def main() -> int:
     #     disturbance observer (estimation/disturbance.py) estimates the
     #     wind accel in flight and feeds it forward; no dataset, no refit.
     #     Gated: must also recover the wind penalty vs the plain noisy
-    #     flight (same bar as the learned row). Staged path (the observer
-    #     carries a 15-state filter the fused kernels don't).
+    #     flight (same bar as the learned row).
     o = jax.jit(
         lambda: noisy_mpc_flight_rollout(
-            mpc_fused, fig8, num_steps, jax.random.PRNGKey(2),
-            ekf_cfg=EKFConfig(), body=windy,
-            cfg=fused_cfg.replace(use_fused_tick=False),
+            mpc20, fig8, num_steps, jax.random.PRNGKey(2),
+            ekf_cfg=EKFConfig(), body=windy, cfg=cfg,
             preview=True, disturbance_observer=True,
         )
     )()
@@ -618,10 +613,9 @@ def main() -> int:
     print("mpc_dob_noisy_windy_figure8",
           json.dumps(summary["mpc_dob_noisy_windy_figure8"]))
 
-    # (f) round-5: GUSTS (see _gusty_rows) — staged trio + the latency-tier
-    #     fused row, gated post-gust in _gust_gates
-    _gusty_rows(summary, args, cfg, num_steps, fig8, mpc_fused, windy,
-                oracle_residual, fused_cfg)
+    # (f) GUSTS (see _gusty_rows), gated post-gust in _gust_gates
+    _gusty_rows(summary, args, cfg, num_steps, fig8, mpc20, windy,
+                oracle_residual)
 
     payload = {
         "ours": summary,

@@ -1,11 +1,11 @@
-"""TPU-native quadrotor GP-MPC framework.
+"""Quadrotor GP-MPC framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the numerical core of the
+A from-scratch JAX/XLA rebuild of the numerical core of the
 ``Grandediw/Unmanned_Aerial_Vehicles`` workspace (ROS 2 + PX4 SITL quadrotor
 trajectory-tracking research comparing cascade PID, linear MPC and
 GP-enhanced MPC).
 
-Design (TPU-first, not a port):
+Design (accelerator-first, not a port):
 
 * Plants, controllers and references are **pure functions**; the ROS pub/sub
   graph of the reference collapses into a single fused XLA program per
@@ -17,8 +17,9 @@ Design (TPU-first, not a port):
   data-dependent control flow, fully jittable.
 * The sklearn/NumPy Gaussian processes (``src/px4/simple_gp.py``,
   ``quadrotor_gp_mpc/quadrotor_gp_mpc/gaussian_process.py``) become a
-  from-scratch JAX GP with Pallas kernel-matrix construction, blocked
-  Cholesky, jitted log-marginal-likelihood and batched posteriors.
+  from-scratch JAX GP: Cholesky fits, jitted log-marginal-likelihood and
+  batched posteriors (one fused Triton kernel for the batched mean on a
+  GPU).
 
 Sub-packages
 ------------
@@ -26,7 +27,9 @@ Sub-packages
 ``trajectories``  10 analytic reference families + named configurations
 ``control``       cascade PID, geometric allocation, linear / SQP MPC
 ``gp``            from-scratch Gaussian process + residual-dynamics learning
-``ops``           numerical kernels: box-QP ADMM, Cholesky, RBF (Pallas)
+``ops``           numerical kernels: box-QP ADMM, Riccati, RBF posterior
+                  mean (Pallas on the Triton route)
+``backend``       which backend runs which path; the compile cache
 ``loop``          fused closed-loop rollouts (scan / vmap)
 ``metrics``       in-graph tracking/solve metrics matching the reference
 ``parallel``      device-mesh sharding helpers for batch sweeps

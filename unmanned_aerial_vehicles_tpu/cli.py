@@ -30,16 +30,16 @@ def _cmd_train_gp(args) -> int:
 
     from .gp import log_marginal_likelihood, optimize_hyperparameters
     from .gp.residual_gp import ResidualGPConfig, default_params
-    from .io import load_gp_datasets, save_gp_checkpoint
+    from .io import save_gp_checkpoint
     from .gp.exact_gp import fit_gp
 
-    paths = sorted(glob.glob(args.data))
-    if not paths:
+    max_samples = None if args.all_samples else args.max_samples
+    corpus = _load_gp_corpus(args.data, max_samples)
+    if corpus is None:
         print(f"no CSV files match {args.data!r}", file=sys.stderr)
         return 1
-    max_samples = None if args.all_samples else args.max_samples
-    X, Y = load_gp_datasets(paths, max_samples=max_samples)
-    print(f"loaded {X.shape[0]} samples from {len(paths)} files")
+    X, Y, source = corpus
+    print(f"loaded {X.shape[0]} samples from {source}")
 
     cfg = ResidualGPConfig()
 
@@ -202,12 +202,6 @@ def _cmd_fly(args) -> int:
                   "(the 12-state residual-channel engines) "
                   "(estimation.disturbance)", file=sys.stderr)
             return 1
-        if args.fast and args.controller not in ("mpc", "gp-mpc"):
-            print("--disturbance-observer --fast is wired for the 6-state "
-                  "family (mpc/gp-mpc: the augmented filter runs inside "
-                  "the fused multi-tick kernel); the 12-state engines run "
-                  "it staged — drop --fast", file=sys.stderr)
-            return 1
     if args.push is not None and args.controller != "direct-rate12":
         print("--push (a constant unmodelled acceleration on the TRUE "
               "plant) is the direct-rate12 scenario knob; the 6-state "
@@ -226,9 +220,7 @@ def _cmd_fly(args) -> int:
         if args.wind is None or not args.noisy:
             print("--gust T WX WY WZ (a wind step-change at t=T on the "
                   "TRUE plant) requires --wind (the pre-gust wind) and "
-                  "--noisy; with --fast the multi-tick kernel reads a "
-                  "per-tick plant-row operand (6-state family)",
-                  file=sys.stderr)
+                  "--noisy", file=sys.stderr)
             return 1
     body6 = None
     wind_fn6 = None
@@ -261,20 +253,9 @@ def _cmd_fly(args) -> int:
     elif args.controller == "ltv12":
         # cvxpy-LTV-equivalent tracking MPC at its own 10 Hz cadence on
         # the GZ quadrotor (mpc_controller.py:123-368), with optional
-        # spherical obstacles (--obstacle, repeatable). --fast flies the
-        # multitick tier at the stability-validated K=2 configuration
-        # (obstacle-constrained: 70.6 us/tick on v5e; see
-        # artifacts/controller_latency.json row ltv_obstacle_multitick)
+        # spherical obstacles (--obstacle, repeatable)
         from .control import LTVTrackingMPC
-        from .loop.rigid_loop import (
-            make_attitude_recovery_fallback,
-            sqp_multitick_rollout,
-        )
-        from .models import GZ_QUADROTOR_PARAMS
-        from .ops.rigid_plant_pallas import (
-            rigid_body_rk4_step_fast,
-            rigid_body_rollout_fused,
-        )
+        from .models import GZ_QUADROTOR_PARAMS, rigid_body_rk4_substeps
 
         LDT = 0.1
         obstacles = None
@@ -294,9 +275,7 @@ def _cmd_fly(args) -> int:
         mpc_ltv = LTVTrackingMPC(num_obstacles=n_obs, obstacle_margin=0.2)
         N_ltv = mpc_ltv.mpc.config.horizon
         mg_gz = GZ_QUADROTOR_PARAMS.mass * GZ_QUADROTOR_PARAMS.gravity
-        K_ltv = 2
-        steps10 = max(K_ltv, int(args.duration / LDT)
-                      - int(args.duration / LDT) % K_ltv)
+        steps10 = max(1, int(args.duration / LDT))
 
         def ref12_at(ts):
             pos, _ = jax.vmap(ref)(ts)
@@ -305,7 +284,7 @@ def _cmd_fly(args) -> int:
                  jnp.zeros((ts.shape[0], 9), jnp.float32)], axis=1)
 
         def plant_ltv(x, u):
-            return rigid_body_rk4_step_fast(
+            return rigid_body_rk4_substeps(
                 x, u, GZ_QUADROTOR_PARAMS, LDT, substeps=2)
 
         x0_ltv = ref12_at(jnp.zeros((1,), jnp.float32))[0]
@@ -315,10 +294,6 @@ def _cmd_fly(args) -> int:
             # reference's 100 Hz plant / 10 Hz cvxpy rate split
             # (main.py:814-826) with the PX4-EKF2 role in-graph
             # (estimation.noisy_ltv_rollout)
-            if args.fast:
-                print("--noisy flies per-tick (the EKF must see every "
-                      "measurement); drop --fast", file=sys.stderr)
-                return 1
             from .estimation import EKFConfig
             from .estimation.noisy_loop import noisy_ltv_rollout
 
@@ -351,27 +326,6 @@ def _cmd_fly(args) -> int:
                       f"10 Hz feedforward): mean estimated accel "
                       f"disturbance (tail) = [{d_tail[0]:+.3f} "
                       f"{d_tail[1]:+.3f} {d_tail[2]:+.3f}] m/s^2")
-        elif args.fast:
-            def reference_fn(ticks):
-                def one(i):
-                    ts = (i + 1 + jnp.arange(N_ltv)).astype(jnp.float32) * LDT
-                    return ref12_at(ts)
-                return jax.vmap(one)(ticks)
-
-            def plan_roll_fn(x_fin, U_fin, residuals):
-                return rigid_body_rollout_fused(
-                    x_fin, U_fin, GZ_QUADROTOR_PARAMS, LDT)
-
-            outs_ltv = jax.jit(lambda x: sqp_multitick_rollout(
-                mpc_ltv.mpc, mpc_ltv.cost, reference_fn, plant_ltv, x,
-                steps10, ticks_per_dispatch=K_ltv, admm_iterations=100,
-                u_init=mpc_ltv.u_hover, obstacles=obstacles,
-                plan_roll_fn=plan_roll_fn,
-                fallback_fn=make_attitude_recovery_fallback(
-                    GZ_QUADROTOR_PARAMS),
-            ))(x0_ltv)
-            print(f"# multitick tier: ltv12, {K_ltv} ticks/dispatch, "
-                  f"{steps10} steps, {n_obs} obstacle(s)")
         else:
             @jax.jit
             def fly_ltv(x0):
@@ -416,13 +370,7 @@ def _cmd_fly(args) -> int:
         # direct-rate12 is the body-rate-input engine
         # (mpc_direct_rates.py:76-922); ilqr12 runs the same task on the
         # Riccati-based iLQR engine instead of SQP+ADMM; mppi12 on the
-        # sampling-based MPPI controller (512 rollouts per tick, fused
-        # into one Pallas dispatch on TPU — ops.mppi_pallas).
-        # --fast routes mpc12/direct-rate12 through the multitick tier
-        # (loop.rigid_loop.sqp_multitick_rollout: per-dispatch
-        # relinearisation, ~17-23 us/tick) and ilqr12 through the
-        # policy-reuse tier (ilqr_multitick_rollout, ~76 us/tick with the
-        # rk4 engine).
+        # sampling-based MPPI controller (512 rollouts per tick).
         import numpy as np
 
         from .control import ILQRRigidBodyMPC, RigidBodyMPC
@@ -432,18 +380,13 @@ def _cmd_fly(args) -> int:
         mg = X500_PARAMS.mass * X500_PARAMS.gravity
         if args.controller == "ilqr12":
             # integrator="rk4": the engine's internal model IS the plant
-            # step (kernel-backed rollouts on TPU) — better tracking AND
-            # faster than the historical Euler engine (staged tick 947 ->
-            # ~354 us at RMS 0.5668 -> 0.5081 on the bench circle task)
+            # step — better tracking than the historical Euler engine
+            # (RMS 0.5668 -> 0.5081 on the circle task)
             mpc12 = ILQRRigidBodyMPC(integrator="rk4")
             thrust_of_u = lambda u: u[..., 0] / mg
         elif args.controller == "mppi12":
             from .control import MPPIController
 
-            if args.fast:
-                print("mppi12 has no multitick tier (every tick re-samples "
-                      "512 rollouts); drop --fast", file=sys.stderr)
-                return 1
             mpc12 = MPPIController()
             thrust_of_u = lambda u: u[..., 0] / mg
         elif args.controller == "direct-rate12":
@@ -460,13 +403,7 @@ def _cmd_fly(args) -> int:
         if args.noisy:
             # estimator in the loop for the 12-state family: sensors ->
             # rigid-body EKF -> controller (flying the ESTIMATE) -> true
-            # plant (estimation.noisy_rigid_mpc_rollout). Per-tick only —
-            # the EKF must see every measurement, same reason the 6-state
-            # multitick tier rejects --noisy.
-            if args.fast:
-                print("--noisy flies per-tick (the EKF must see every "
-                      "measurement); drop --fast", file=sys.stderr)
-                return 1
+            # plant (estimation.noisy_rigid_mpc_rollout)
             from .estimation import EKFConfig
             from .estimation.noisy_loop import noisy_rigid_mpc_rollout
 
@@ -543,91 +480,6 @@ def _cmd_fly(args) -> int:
             print(f"# noisy tier: {args.controller} on {model} EKF "
                   f"estimate; estimate RMS vs truth "
                   f"{float(est_rms):.4f} m")
-        elif args.fast:
-            # multitick tiers: per-dispatch relinearisation / policy reuse
-            # (the artifacts/controller_latency.json rows, reproducible
-            # from the CLI — VERDICT round-4 #4)
-            from .loop.rigid_loop import (
-                ilqr_multitick_rollout,
-                sqp_multitick_rollout,
-            )
-
-            K = 8 if args.controller != "ilqr12" else 2
-            steps = max(K, num_steps - num_steps % K)
-            tier = "multitick"
-
-            def pos_at(ts):
-                pos, _ = jax.vmap(ref)(ts)
-                return jnp.asarray(pos, jnp.float32)
-
-            # backend-aware fused plant kernel (ops.rigid_plant_pallas):
-            # the XLA RK4 step was the dominant per-tick cost on TPU
-            from .ops.rigid_plant_pallas import rigid_body_rk4_step_fast
-
-            if args.controller == "ilqr12":
-                plant = lambda x, u: rigid_body_rk4_step_fast(
-                    x, u, X500_PARAMS, cfg.control_dt)
-
-                def position_ref_fn(ticks):
-                    return pos_at(ticks.astype(jnp.float32) * cfg.control_dt)
-
-                # the measured-safe fast engine: with the dispatch-carried
-                # warm start, closed-loop RMS is ITERATION-invariant
-                # (iterations=1), and the rk4 internal model + kernel
-                # rollouts make the K=2 policy tier ~76 us/tick at BETTER
-                # RMS than the old staged Euler engine
-                # (ilqr12_multitick_rk4_k2 row)
-                mpc12 = ILQRRigidBodyMPC(iterations=1, integrator="rk4")
-                outs12 = jax.jit(lambda x: ilqr_multitick_rollout(
-                    mpc12, position_ref_fn, plant, x, steps,
-                    ticks_per_dispatch=K,
-                ))(x0)
-            else:
-                N12 = mpc12.mpc.config.horizon
-
-                def reference_fn(ticks):
-                    pos = pos_at(ticks.astype(jnp.float32) * cfg.control_dt)
-                    stage = jnp.concatenate(
-                        [pos, jnp.zeros((pos.shape[0], 9), jnp.float32)],
-                        axis=1,
-                    )
-                    return jnp.tile(stage[:, None, :], (1, N12, 1))
-
-                if args.controller == "direct-rate12":
-                    # whole-tick Pallas tier (ops.rigid_tick_pallas):
-                    # shift + condensed ADMM + plant in one kernel,
-                    # relinearisation per dispatch in XLA (~14 us/tick
-                    # in-kernel on v5e; parity pinned in
-                    # tests/test_rigid_multitick.py)
-                    from .loop.rigid_loop import direct_rate_multitick_fused
-
-                    outs12 = jax.jit(lambda x: direct_rate_multitick_fused(
-                        mpc12.mpc, mpc12.cost, reference_fn, x, steps,
-                        ticks_per_dispatch=K, admm_iterations=30,
-                        u_init=mpc12.u_hover, dt=cfg.control_dt,
-                        plan_roll="linear",
-                    ))(x0)
-                    tier = "fused multitick"
-                else:
-                    plant = lambda x, u: rigid_body_rk4_step_fast(
-                        x, u, X500_PARAMS, cfg.control_dt)
-                    # plan_roll="linear": RMS-identical on the tracking
-                    # tasks at ~half the tick (bench comment has the
-                    # measurements); obstacle flights (ltv12) keep the
-                    # nonlinear kernel roll
-                    outs12 = jax.jit(lambda x: sqp_multitick_rollout(
-                        mpc12.mpc, mpc12.cost, reference_fn, plant, x, steps,
-                        ticks_per_dispatch=K, admm_iterations=30,
-                        u_init=mpc12.u_hover, plan_roll="linear",
-                    ))(x0)
-            ts = jnp.arange(steps, dtype=jnp.float32) * cfg.control_dt
-            outs = {
-                "state": outs12["state"],
-                "pos_ref": pos_at(ts),
-                "thrust": thrust_of_u(outs12["u"]),
-            }
-            print(f"# {tier} tier: {args.controller}, "
-                  f"{K} ticks/dispatch, {steps} steps")
         else:
             @jax.jit
             def fly12():
@@ -680,36 +532,18 @@ def _cmd_fly(args) -> int:
             print(f"animation written to {path}")
         return 0
     else:
-        if args.fast and args.gp_mode == "output":
-            print("--gp-mode output (the post-solve GP generation) is a "
-                  "staged-path capability; drop --fast", file=sys.stderr)
-            return 1
-        if args.fast:
-            # latency mode: whole ticks per Pallas dispatch, GP posterior
-            # in-kernel (bench.py's configuration; TPU only). --noisy runs
-            # the EKF INSIDE the multi-tick kernel too (~8 us/tick),
-            # including the gp-mpc/preview combinations
-            cfg = FlightLoopConfig(use_fused_tick=True,
-                                   fused_tick_loop_precision="default",
-                                   ticks_per_dispatch=8)
-            num_steps -= num_steps % 8
-            mpc = LinearMPC(LinearMPCConfig(horizon=20, admm_iterations=10,
-                                            use_fused_controller=True))
-        else:
-            mpc = LinearMPC(LinearMPCConfig())
+        mpc = LinearMPC(LinearMPCConfig())
         residual_fn = None
         output_correction_fn = None
-        gp_posterior, gp_gain = None, 0.1
+        gp_gain = 0.1
         online_gp = None
         if args.online:
-            # ONLINE in-flight learning on the fused multi-tick path (the
-            # bench headline configuration): ring-buffer capture every tick
-            # + cond-gated masked refit every 250 ticks — no pretrained
+            # ONLINE in-flight learning: ring-buffer capture every tick +
+            # cond-gated masked refit every 250 ticks — no pretrained
             # model needed, the GP learns from scratch during the flight
-            if not (args.fast and args.controller == "gp-mpc"):
-                print("--online is the fused in-flight learning mode: use "
-                      "--controller gp-mpc --fast (the staged equivalent "
-                      "is the 'online' subcommand)", file=sys.stderr)
+            if args.controller != "gp-mpc":
+                print("--online is in-flight GP learning: use "
+                      "--controller gp-mpc", file=sys.stderr)
                 return 1
             if args.gp_model or args.gp_mode == "output":
                 print("--online learns in flight; drop --gp-model/"
@@ -745,11 +579,6 @@ def _cmd_fly(args) -> int:
                         args.gp_model, dtype=jnp.float32
                     )
                     if kind == "per_dim":
-                        if args.fast:
-                            print("per-dim pickle models use the staged "
-                                  "path (six independent kernels); drop "
-                                  "--fast", file=sys.stderr)
-                            return 1
                         from .gp.per_dim import (
                             build_horizon_residuals_per_dim,
                         )
@@ -782,9 +611,9 @@ def _cmd_fly(args) -> int:
                         args.gp_model, dtype=jnp.float32
                     )
                 if X.shape[0] > gp_cfg.max_data_points:
-                    # cap to the flight-loop design size (the in-kernel GP
-                    # and per-tick GEMMs are sized for max_data_points; a
-                    # 10k/19.8k offline checkpoint would run uncapped)
+                    # cap to the flight-loop design size (the per-tick GP
+                    # products are sized for max_data_points; a 10k/19.8k
+                    # offline checkpoint would run uncapped)
                     n = gp_cfg.max_data_points
                     print(f"checkpoint has {X.shape[0]} rows; refitting the "
                           f"flight posterior on the first {n} "
@@ -815,25 +644,19 @@ def _cmd_fly(args) -> int:
                 output_correction_fn = make_output_correction_fn(
                     post, n_train=X.shape[0]
                 )
-            elif args.fast:
-                gp_posterior, gp_gain = post, gp_cfg.residual_gain
             else:
                 residual_fn = lambda Xg, Ug: build_horizon_residuals(
                     post, Xg, Ug, gp_cfg
                 )
         if args.noisy:
             # estimator in the loop: sensors -> EKF -> controller -> plant
-            # (with --fast: the fused tick kernel flies the EKF estimate via
-            # its controller-state operand while the in-kernel plant
-            # integrates the truth)
             if output_correction_fn is not None:
                 print("--noisy supports the in-dynamics GP mode only "
                       "(--gp-mode dynamics)", file=sys.stderr)
                 return 1
             from .estimation import EKFConfig, noisy_mpc_flight_rollout
 
-            ekf_cfg = EKFConfig(relinearize_every=args.ekf_relin,
-                                cov_precision=args.ekf_cov)
+            ekf_cfg = EKFConfig()
             body_kw = {"body": body6} if body6 is not None else {}
             if wind_fn6 is not None:
                 body_kw["wind_fn"] = wind_fn6
@@ -841,8 +664,7 @@ def _cmd_fly(args) -> int:
                 lambda: noisy_mpc_flight_rollout(
                     mpc, ref, num_steps, jax.random.PRNGKey(args.seed),
                     cfg=cfg, residual_fn=residual_fn, preview=args.preview,
-                    gp_posterior=gp_posterior, gp_gain=gp_gain,
-                    ekf_cfg=ekf_cfg, online_gp=online_gp,
+                    gp_gain=gp_gain, ekf_cfg=ekf_cfg, online_gp=online_gp,
                     disturbance_observer=(
                         True if args.disturbance_observer else None
                     ),
@@ -868,8 +690,7 @@ def _cmd_fly(args) -> int:
                 lambda: mpc_flight_rollout(
                     mpc, ref, num_steps, cfg=cfg, residual_fn=residual_fn,
                     output_correction_fn=output_correction_fn,
-                    preview=args.preview,
-                    gp_posterior=gp_posterior, gp_gain=gp_gain,
+                    preview=args.preview, gp_gain=gp_gain,
                     online_gp=online_gp,
                     **body_kw,
                 )
@@ -1177,23 +998,39 @@ def _cmd_tune(args) -> int:
     return 0
 
 
-def _fit_corpus_gp(gp_data_glob: str):
-    """Fit the flight GP on the CSV corpus (shared by fly/montecarlo).
+def _load_gp_corpus(spec: str, max_samples):
+    """``(X, Y, source)`` from ``spec``: a CSV glob in the reference's
+    ``gp_datasets`` schema, or ``synthetic`` for the seeded excitation
+    corpus at the reference corpus's size (``io.synthetic_corpus``).
+    ``None`` when the glob is empty (caller prints the error)."""
+    from .io import load_gp_datasets, synthetic_corpus
 
-    Returns ``(posterior, gp_cfg)`` or ``None`` when the glob is empty
+    if spec == SYNTHETIC:
+        X, Y = synthetic_corpus(max_samples=max_samples)
+        return X, Y, "the synthetic excitation corpus (seed 0)"
+    paths = sorted(glob.glob(spec))
+    if not paths:
+        return None
+    X, Y = load_gp_datasets(paths, max_samples=max_samples)
+    return X, Y, f"{len(paths)} files"
+
+
+def _fit_corpus_gp(gp_data: str):
+    """Fit the flight GP on the corpus (shared by fly/montecarlo).
+
+    Returns ``(posterior, gp_cfg, X)`` or ``None`` when the glob is empty
     (caller prints the error)."""
     import jax
     import jax.numpy as jnp
 
     from .gp import fit_residual_gp
     from .gp.residual_gp import ResidualGPConfig
-    from .io import load_gp_datasets
 
     gp_cfg = ResidualGPConfig()
-    paths = sorted(glob.glob(gp_data_glob))
-    if not paths:
+    corpus = _load_gp_corpus(gp_data, gp_cfg.max_data_points)
+    if corpus is None:
         return None
-    X, Y = load_gp_datasets(paths, max_samples=gp_cfg.max_data_points)
+    X, Y, _ = corpus
     post = jax.jit(lambda x, y: fit_residual_gp(x, y, gp_cfg))(
         jnp.asarray(X, jnp.float32), jnp.asarray(Y, jnp.float32)
     )
@@ -1278,15 +1115,20 @@ def _cmd_montecarlo(args) -> int:
     return 0
 
 
+SYNTHETIC = "synthetic"
+_DATA_HELP = ("CSV glob in the gp_datasets schema, or 'synthetic' (default) "
+              "for the seeded excitation corpus of io.synthetic_corpus")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="unmanned_aerial_vehicles_tpu",
-        description="TPU-native quadrotor GP-MPC framework",
+        description="quadrotor GP-MPC framework",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train-gp", help="offline GP training from flight CSVs")
-    t.add_argument("--data", default="/root/reference/gp_datasets/*.csv")
+    t.add_argument("--data", default=SYNTHETIC, help=_DATA_HELP)
     t.add_argument("--output", default="gp_model.npz")
     t.add_argument("--max-samples", type=int, default=10000)
     t.add_argument("--all-samples", action="store_true",
@@ -1325,7 +1167,7 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--trajectory", choices=["figure8", "circle"], default="figure8")
     f.add_argument("--duration", type=float, default=60.0)
     f.add_argument("--amplitude", type=float, default=6.0)
-    f.add_argument("--gp-data", default="/root/reference/gp_datasets/*.csv")
+    f.add_argument("--gp-data", default=SYNTHETIC, help=_DATA_HELP)
     f.add_argument("--gp-model", default=None,
                    help="fly a saved GP checkpoint (train-gp output) "
                         "instead of refitting from --gp-data (the "
@@ -1339,21 +1181,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "post-solve ('output', mpc_gp.py generation)")
     f.add_argument("--preview", action="store_true",
                    help="per-stage horizon references (removes tracking lag)")
-    f.add_argument("--fast", action="store_true",
-                   help="latency mode. mpc/gp-mpc: 8 whole ticks per "
-                        "Pallas dispatch, GP in-kernel (~5 us/tick on "
-                        "v5e). mpc12: the multitick per-dispatch-"
-                        "relinearisation tier (~18 us/tick); "
-                        "direct-rate12: the fused multitick Pallas tier "
-                        "(~19 us/tick at K=8, ~9 at K=20); ilqr12: "
-                        "the rk4 policy-reuse tier (~76 us/tick at "
-                        "K=2, better RMS than the staged Euler "
-                        "engine); ltv12: the "
-                        "K=2 multitick tier (~70 us/tick with obstacle "
-                        "rows). pid ignores this; mppi12 rejects it")
     f.add_argument("--online", action="store_true",
-                   help="ONLINE in-flight GP learning on the fused path "
-                        "(~8 us/tick; requires --controller gp-mpc --fast; "
+                   help="ONLINE in-flight GP learning (--controller gp-mpc; "
                         "no pretrained model needed — ring-buffer capture "
                         "+ 5 s refits, the reference's retrain policy; "
                         "composes with --noisy: the GP then trains on EKF "
@@ -1371,23 +1200,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "runs the multi-rate 100 Hz-EKF/10 Hz-solve split)")
     f.add_argument("--seed", type=int, default=0,
                    help="sensor-noise PRNG seed (--noisy)")
-    f.add_argument("--ekf-relin", choices=("tick", "dispatch"),
-                   default="tick",
-                   help="EKF process-Jacobian cadence on the fused tier "
-                        "(--noisy --fast): per-tick exact (default) or "
-                        "frozen per dispatch (cheaper, bounded drift)")
-    f.add_argument("--ekf-cov", choices=("highest", "bf16"),
-                   default="highest",
-                   help="precision of the fused EKF's covariance-"
-                        "propagation dots (--noisy --fast): 6-pass HIGHEST "
-                        "(default) or single-pass bf16")
     f.add_argument("--wind", nargs=3, type=float, default=None,
                    metavar=("WX", "WY", "WZ"),
                    help="steady world-frame wind (m/s) on the TRUE plant "
                         "(mpc/gp-mpc family; drag acts on airspeed)")
     f.add_argument("--disturbance-observer", action="store_true",
-                   help="augmented-EKF disturbance observer (--noisy, "
-                        "staged path): estimates the accel disturbance "
+                   help="augmented-EKF disturbance observer (--noisy): "
+                        "estimates the accel disturbance "
                         "in flight and feeds it to the MPC — wind "
                         "rejection without learning "
                         "(estimation/disturbance.py)")
@@ -1401,7 +1220,7 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar=("T", "WX", "WY", "WZ"),
                    help="wind step-change on the TRUE plant: at t=T (s) "
                         "the wind switches from --wind to (WX, WY, WZ) "
-                        "(--noisy, staged path; pair with "
+                        "(--noisy; pair with "
                         "--disturbance-observer to watch the estimate "
                         "re-converge)")
     f.add_argument("--push-step", nargs=4, type=float, default=None,
@@ -1474,7 +1293,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     mcp.add_argument("--controller", choices=["pid", "mpc", "gp-mpc"],
                      default="mpc")
-    mcp.add_argument("--gp-data", default="/root/reference/gp_datasets/*.csv")
+    mcp.add_argument("--gp-data", default=SYNTHETIC, help=_DATA_HELP)
     mcp.add_argument("--trajectory", choices=["figure8", "circle"],
                      default="circle")
     mcp.add_argument("--duration", type=float, default=30.0)

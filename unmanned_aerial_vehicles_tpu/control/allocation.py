@@ -13,7 +13,7 @@ Functional rewrites of the reference's L3 allocation layer:
 
 from __future__ import annotations
 
-from flax import struct
+from .. import struct
 import jax.numpy as jnp
 
 from ..utils.rotations import wrap_angle

@@ -9,7 +9,7 @@ Two controllers from the reference are re-expressed as pure step functions:
    Output ``[thrust_normalized, p_cmd, q_cmd, r_cmd]`` pairs with the
    ``models.px4_surrogate`` plant.
 
-   TPU-first: the nine scalar PID objects become three *vectorised* PID
+   Vectorised: the nine scalar PID objects become three *vectorised* PID
    triples (one fused update per cascade layer — no Python loop, one XLA
    program per tick).
 
@@ -21,7 +21,7 @@ Two controllers from the reference are re-expressed as pure step functions:
 
 from __future__ import annotations
 
-from flax import struct
+from .. import struct
 import jax.numpy as jnp
 
 from .pid import PIDGains, PIDState, pid_init, pid_step

@@ -55,7 +55,6 @@ def ilqr_solve(
     u_lower: jnp.ndarray | None = None,
     u_upper: jnp.ndarray | None = None,
     parallel: bool = False,
-    rollout_fn: Callable | None = None,
 ) -> ILQRSolution:
     """Fixed-iteration iLQR for quadratic tracking costs.
 
@@ -63,14 +62,6 @@ def ilqr_solve(
     Riccati (worth it for long horizons). Returns the best-cost iterate —
     a late iteration can never make the answer worse.
 
-    ``rollout_fn(x0, U) -> (N, nx)`` optionally replaces the serial
-    ``lax.scan`` of ``step_fn`` for the forward rollouts (the solve's
-    dominant cost when ``step_fn`` is an XLA RK4 chain: ~44 µs/step of
-    tiny-op dispatch vs 0.6 µs in the fused plant kernel —
-    ``ops.rigid_plant_pallas.rigid_body_rollout_fused``). It must match
-    ``step_fn`` semantics (kernel-vs-XLA parity 2e-8/step is pinned by
-    ``tests/test_rigid_plant_kernel.py``); linearisation stays a batched
-    ``jacfwd`` of ``step_fn``.
     """
     N, nu = U_init.shape
     nx = x0.shape[0]
@@ -78,14 +69,11 @@ def ilqr_solve(
     step_jac = jax.vmap(jax.jacfwd(step_fn, argnums=(0, 1)))
 
     def rollout(U):
-        if rollout_fn is not None:
-            X_tail = rollout_fn(x0, U)
-        else:
-            def body(x, u):
-                xn = step_fn(x, u)
-                return xn, xn
+        def body(x, u):
+            xn = step_fn(x, u)
+            return xn, xn
 
-            _, X_tail = jax.lax.scan(body, x0, U)
+        _, X_tail = jax.lax.scan(body, x0, U)
         return jnp.concatenate([x0[None, :], X_tail], axis=0)
 
     zeros_c = jnp.zeros((N, nx), U_init.dtype)
@@ -189,18 +177,15 @@ class ILQRRigidBodyMPC:
     shifting the previous control sequence.
 
     Default ``iterations=3``: like the ADMM controllers, the 50 Hz warm
-    start carries convergence across ticks — measured on v5e, circle-task
-    closed-loop RMS is IDENTICAL (0.6049 m) at 6/3/2/1 iterations while
-    the tick costs 2749/1479/1056/469 µs; 3 keeps a safety margin over
-    the single-iteration floor for cold transients.
+    start carries convergence across ticks — circle-task closed-loop RMS
+    is identical (0.6049 m) at 6/3/2/1 iterations; 3 keeps a safety margin
+    over the single-iteration floor for cold transients.
 
     ``integrator="rk4"`` is the recommended FLIGHT configuration: the
-    internal model becomes the true plant step and the solve's forward
-    rollouts run in the fused Pallas plant kernel on TPU
-    (``ops.rigid_plant_pallas``), which is simultaneously more accurate
-    AND faster than the Euler default (staged tick 947 → ~354 µs at RMS
-    0.5668 → 0.5081 on the bench circle task; the Euler default is kept
-    for construction-cost-sensitive uses and historical parity rows)."""
+    internal model becomes the true plant step, which is more accurate
+    than the Euler default (RMS 0.5668 -> 0.5081 on the circle task; the
+    Euler default is kept for construction-cost-sensitive uses and
+    historical parity rows)."""
 
     def __init__(self, dt: float = 0.02, horizon: int = 15,
                  iterations: int = 3, reg: float = 1e-2,
@@ -238,21 +223,6 @@ class ILQRRigidBodyMPC:
 
         self.step_fn = step
 
-        # kernel-backed forward rollouts for the RK4 engine: the solve is
-        # rollout-dominated in XLA (N serial RK4 steps at ~44 µs each of
-        # tiny-op dispatch); the fused plant kernel rolls the same chain at
-        # 0.6 µs/step (parity 2e-8, tests/test_rigid_plant_kernel.py).
-        # Only where Mosaic compiles (TPU backend — fixed once jax
-        # initialises, so decided here); f64 engines (solver-parity tests)
-        # and CPU/GPU keep ilqr_solve's pure-XLA scan (rollout_fn=None).
-        self.rollout_fn = None
-        if (integrator == "rk4" and dtype == jnp.float32
-                and jax.default_backend() == "tpu"):
-            from ..ops.rigid_plant_pallas import rigid_body_rollout_fused
-
-            self.rollout_fn = lambda x0, U: rigid_body_rollout_fused(
-                x0, U, p, dt, interpret=False)
-
         # costs: mpc_FULL.py:264-276 / :352-360 (same as RigidBodyMPC)
         q = jnp.asarray(
             [12.0, 12.0, 18.0, 3.0, 3.0, 4.0, 2.0, 2.0, 1.5, 0.3, 0.3, 0.3],
@@ -288,6 +258,6 @@ class ILQRRigidBodyMPC:
             self.step_fn, x, U0, self.q_diag, self.r_diag, x_ref, u_ref,
             iterations=self.iterations, reg=self.reg,
             u_lower=self.u_lower, u_upper=self.u_upper,
-            parallel=self.parallel, rollout_fn=self.rollout_fn,
+            parallel=self.parallel,
         )
         return sol.U[0], sol.X, ILQRCarry(U_prev=sol.U)

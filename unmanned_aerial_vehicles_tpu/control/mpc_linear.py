@@ -23,7 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,8 +53,7 @@ class LinearMPCConfig:
     # solve-to-convergence mode: active-set polish of the ADMM iterate
     # (ops.qp.active_set_polish). With f64 this matches the reference's
     # interior-point semantics (Ipopt tol=1e-6, mpc.py:1427-1438) to <=1e-8
-    # per-tick u0 — the 1e-6 solver-parity bar. Adds one (n+m) LU per tick;
-    # not compatible with the fused Pallas paths.
+    # per-tick u0 — the 1e-6 solver-parity bar. Adds one (n+m) LU per tick.
     polish: bool = False
     polish_tol: float = 1e-7
     polish_passes: int = 3
@@ -62,12 +61,6 @@ class LinearMPCConfig:
     # arXiv:2211.15522): state boxes shrink by factor * propagated GP std.
     # 0.0 disables (bit-exact baseline behaviour).
     tightening_factor: float = 0.0
-    # run the whole ADMM loop as ONE Pallas kernel (latency mode; f32 only)
-    use_fused_admm: bool = False
-    # run the ENTIRE controller (gradient/bounds build + composite ADMM +
-    # primal/trajectory extraction) as ONE Pallas kernel; supersedes
-    # use_fused_admm (latency mode; f32 only)
-    use_fused_controller: bool = False
 
 
 class MPCCarry(NamedTuple):
@@ -115,9 +108,7 @@ class LinearMPC:
         self.n_constraints = G.shape[0]
 
         # Keep static problem data as HOST numpy arrays: under jit they embed
-        # as HLO constants with zero device round-trips at trace time (device
-        # residency would force per-lowering fetches — costly over remote
-        # TPU tunnels).
+        # as compile-time constants of the step program.
         np_dtype = np.dtype(jnp.dtype(dtype).name)
         cast = lambda a: np.asarray(a, dtype=np_dtype)
         self._Sx, self._Su, self._Sw = cast(Sx), cast(Su), cast(Sw)
@@ -135,25 +126,6 @@ class LinearMPC:
         self._x_hi = cast(np.tile(config.state_upper, N))
         self._Sw_sq = cast(Sw**2)   # variance propagation (tightening)
 
-        if config.use_fused_controller:
-            from ..ops.controller_pallas import build_fused_controller_data
-
-            self._fc_data = build_fused_controller_data(
-                Sx, Su, Sw, Su.T * qbar[None, :], M_inv, G,
-                self._u_lo, self._u_hi, self._x_lo, self._x_hi,
-            )
-
-        if config.use_fused_admm:
-            # MXU-padded copies for the fused Pallas ADMM path (composite)
-            pad128 = lambda v: ((v + 127) // 128) * 128
-            self._n_pad = pad128(self.n_primal)
-            self._m_pad = pad128(self.n_constraints)
-            P1p = np.zeros((self._m_pad, self._m_pad), np.float32)
-            P1p[: self.n_constraints, : self.n_constraints] = self._P1
-            GMinvTp = np.zeros((self._n_pad, self._m_pad), np.float32)
-            GMinvTp[: self.n_primal, : self.n_constraints] = GMinv.T
-            self._P1_pad = P1p
-            self._GMinvT_pad = GMinvTp
 
     # ------------------------------------------------------------------
     def init_carry(self, state: jnp.ndarray | None = None) -> MPCCarry:
@@ -206,8 +178,7 @@ class LinearMPC:
         (independent-disturbance variance propagation: sigma_X =
         sqrt(Sw^2 (dt sigma_d)^2)) — the back-off of zero-order GP-MPC
         (arXiv:2211.15522), a use of the posterior variance the reference
-        computes but never closes the loop on. Not supported on the fused
-        Pallas paths.
+        computes but never closes the loop on.
 
         ``reference_states``: optional ``(N, 6)`` per-stage state references
         (trajectory *preview*). The reference controller tracks only a point
@@ -236,41 +207,6 @@ class LinearMPC:
                 ),
                 N,
             )
-        if cfg.use_fused_controller:
-            if uncertainty is not None and cfg.tightening_factor > 0.0:
-                raise ValueError(
-                    "uncertainty tightening with use_fused_controller runs "
-                    "on the multi-tick kernel path (use_fused_tick=True + "
-                    "gp_posterior=, ops.tick_pallas) — the standalone fused "
-                    "controller kernel reads static bound rows"
-                )
-            from ..ops.controller_pallas import gpmpc_controller_fused
-
-            n_pad = self._fc_data.SxT.shape[0]
-            m_pad = self._fc_data.P1.shape[0]
-            row = lambda v, size: jnp.zeros((1, size), jnp.float32).at[
-                0, : v.shape[0]
-            ].set(v.astype(jnp.float32))
-
-            z_r, y_r, U_r, Xt_r = gpmpc_controller_fused(
-                self._fc_data,
-                row(x0, n_pad), row(w, n_pad), row(ref, n_pad),
-                row(carry.slack, m_pad), row(carry.dual, m_pad),
-                cfg.admm_rho, cfg.admm_iterations, cfg.admm_over_relax,
-                # Mosaic needs TPU hardware; CPU (tests) runs the interpreter
-                interpret=jax.default_backend() == "cpu",
-            )
-            m = self.n_constraints
-            slack = z_r[0, :m].astype(self.dtype)
-            dual = y_r[0, :m].astype(self.dtype)
-            U = slack[: N * CONTROL_DIM].reshape(N, CONTROL_DIM)
-            X_tail = Xt_r[0, : N * STATE_DIM].astype(self.dtype).reshape(
-                N, STATE_DIM
-            )
-            X_opt = jnp.concatenate([x0[None, :], X_tail], axis=0)
-            new_carry = MPCCarry(slack=slack, dual=dual, X_prev=X_opt, U_prev=U)
-            return U[0], X_opt, new_carry
-
         mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
         offset = mm(self._Sx, x0) + mm(self._Sw, w)
         f = mm(self._SuT_q, offset - ref)
@@ -292,57 +228,37 @@ class LinearMPC:
         p0 = -mm(self._GMinv, f)
         minv_f = mm(self._M_inv, f)
 
-        if cfg.use_fused_admm:
-            from ..ops.admm_pallas import admm_box_qp_fused_composite
+        sol = admm_box_qp_composite(
+            self._P1,
+            p0,
+            self._GMinv.T,
+            minv_f,
+            lower,
+            upper,
+            carry.slack,
+            carry.dual,
+            cfg.admm_rho,
+            cfg.admm_iterations,
+            cfg.admm_over_relax,
+        )
+        if cfg.polish:
+            from ..ops.qp import active_set_polish
 
-            m, n = self.n_constraints, self.n_primal
-            pad_v = lambda v, size: jnp.zeros((1, size), jnp.float32).at[
-                0, : v.shape[0]
-            ].set(v.astype(jnp.float32))
-            Up, zp, yp = admm_box_qp_fused_composite(
-                self._P1_pad, pad_v(p0, self._m_pad),
-                self._GMinvT_pad, pad_v(minv_f, self._n_pad),
-                pad_v(lower, self._m_pad), pad_v(upper, self._m_pad),
-                pad_v(carry.slack, self._m_pad), pad_v(carry.dual, self._m_pad),
-                cfg.admm_rho, cfg.admm_iterations, cfg.admm_over_relax,
-            )
-            sol = AdmmState(
-                primal=Up[0, :n].astype(self.dtype),
-                slack=zp[0, :m].astype(self.dtype),
-                dual=yp[0, :m].astype(self.dtype),
-            )
-        else:
-            sol = admm_box_qp_composite(
-                self._P1,
-                p0,
-                self._GMinv.T,
-                minv_f,
+            U_pol, y_pol, _ = active_set_polish(
+                jnp.asarray(self._H),
+                jnp.asarray(self._G),
+                f,
                 lower,
                 upper,
-                carry.slack,
-                carry.dual,
-                cfg.admm_rho,
-                cfg.admm_iterations,
-                cfg.admm_over_relax,
+                sol,
+                tol=cfg.polish_tol,
+                passes=cfg.polish_passes,
             )
-            if cfg.polish:
-                from ..ops.qp import active_set_polish
-
-                U_pol, y_pol, _ = active_set_polish(
-                    jnp.asarray(self._H),
-                    jnp.asarray(self._G),
-                    f,
-                    lower,
-                    upper,
-                    sol,
-                    tol=cfg.polish_tol,
-                    passes=cfg.polish_passes,
-                )
-                # slack = G U_pol keeps the downstream U-block extraction
-                # intact (G = [I; Su] so its first block IS U_pol)
-                sol = AdmmState(
-                    primal=U_pol, slack=mm(self._G, U_pol), dual=y_pol
-                )
+            # slack = G U_pol keeps the downstream U-block extraction
+            # intact (G = [I; Su] so its first block IS U_pol)
+            sol = AdmmState(
+                primal=U_pol, slack=mm(self._G, U_pol), dual=y_pol
+            )
 
         # controls come from the slack's U-block: box-feasible by
         # construction at every iteration (the primal can violate bounds

@@ -63,8 +63,8 @@ class RigidBodyMPC:
             return x + dt * rigid_body_derivative(x, u, params, d)
 
         # sqp_iterations=1: the 50 Hz shifted warm start carries SQP
-        # convergence (v5e circle task: rms IDENTICAL 0.6041 m at 1 vs 2
-        # passes, 280 vs 521 us/tick)
+        # convergence (circle task: rms IDENTICAL 0.6041 m at 1 vs 2
+        # passes, at half the solve work)
         cfg = config or SQPConfig(horizon=horizon, sqp_iterations=1,
                                   admm_iterations=80, admm_rho=0.05)
         # bounds: mpc_FULL.py:393-430
@@ -189,8 +189,8 @@ class DirectRateMPC:
         def step_fn(x, u, d):
             return direct_rate_step(x, u, d, dt=dt)
 
-        # sqp_iterations=1: warm start carries convergence (v5e circle:
-        # rms 0.2174 vs 0.2177 at 1 vs 2 passes, 229 vs 447 us/tick)
+        # sqp_iterations=1: warm start carries convergence (circle task:
+        # rms 0.2174 vs 0.2177 at 1 vs 2 passes)
         cfg = config or SQPConfig(horizon=horizon, sqp_iterations=1,
                                   admm_iterations=80, admm_rho=0.05)
         # bounds: mpc_direct_rates.py:279-304

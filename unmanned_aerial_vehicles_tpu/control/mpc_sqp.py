@@ -34,7 +34,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 
@@ -62,10 +62,9 @@ class QuadCost:
 class SQPConfig:
     horizon: int = 15
     # ONE SQP (re-linearisation) pass per tick: the 50 Hz shifted warm
-    # start is the outer solver (the ADMM/iLQR finding repeats) — measured
-    # on v5e, circle-task closed-loop RMS 0.560 m at sqp=1 vs 0.619 at
-    # sqp=2 for 269 vs 489 µs/tick (a 20 ms-old second anchor helps
-    # nothing at this rate). The ADMM count below is NOT reducible the
+    # start is the outer solver (the ADMM/iLQR finding repeats) — circle
+    # -task closed-loop RMS 0.560 m at sqp=1 vs 0.619 at sqp=2 (a 20 ms
+    # -old second anchor helps nothing at this rate). The ADMM count below is NOT reducible the
     # same way (20 iters -> 2.5 m RMS: the equilibrated in-graph QP
     # carries no cross-tick duals in this engine).
     sqp_iterations: int = 1

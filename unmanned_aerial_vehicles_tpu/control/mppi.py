@@ -1,17 +1,13 @@
-"""MPPI: sampling-based MPC for the 12-state rigid body (TPU-native).
+"""MPPI: sampling-based MPC for the 12-state rigid body.
 
 No reference counterpart — every reference controller is derivative-based
 (CasADi/Ipopt NLPs, cvxpy QPs). Model Predictive Path Integral control
 (Williams et al., information-theoretic MPC) is the natively-parallel
 alternative: each tick rolls out K perturbed control sequences through the
-full nonlinear plant and softmax-averages them by cost. On CPU this is
-K*N plant evaluations per tick and impractical at 50 Hz; on TPU the whole
-sampling stage — K rollouts x N RK4 steps plus stage costs — runs as ONE
-Pallas dispatch of vector arithmetic over the sample lanes
-(``ops.mppi_pallas``, ~36 µs/tick at K=512 vs 153 µs for the vmapped XLA
-scan it replaced; a vmapped-scan fallback remains for CPU, traced plant
-params, and non-lane-aligned K). Handles non-convex costs and raw
-nonlinear dynamics with no linearisation or solver iterations at all.
+full nonlinear plant and softmax-averages them by cost: K*N plant
+evaluations per tick, which a vmapped scan turns into N batched steps over
+the samples. Handles non-convex costs and raw nonlinear dynamics with no
+linearisation or solver iterations at all.
 
 Interface matches ``mpc_rigid.RigidBodyMPC`` (``init_carry`` / ``solve``
 on the z-up rigid-body plant with ``[T, tau]`` inputs), so it drops into
@@ -22,7 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 
@@ -43,12 +39,6 @@ class MPPIConfig:
     # (diagnostics; an extra sequential N-step chain — ~half the tick's
     # critical path — so off by default; solve returns None in its place)
     return_trajectory: bool = False
-    # run the K rollouts + stage costs as ONE Pallas dispatch
-    # (ops.mppi_pallas) instead of a vmapped XLA scan — the sampling
-    # stage was N sequential batched-HLO steps, the tick's critical path.
-    # Auto-disabled on CPU, for traced (vmapped) plant params, for
-    # num_samples not a multiple of 128, and for non-f32 dtypes.
-    fused_rollouts: bool = True
     # stage costs
     q_pos: float = 60.0
     q_vel: float = 6.0
@@ -99,32 +89,6 @@ class MPPIController:
         )
 
     # ------------------------------------------------------------------
-    def _use_fused(self) -> bool:
-        """Fused-kernel eligibility, decided at trace time: TPU backend,
-        f32, lane-aligned sample count, and CONCRETE plant params (the
-        kernel bakes physics in as compile-time constants; Monte-Carlo
-        studies that vmap over ``RigidBodyParams`` fall back to the
-        vmapped XLA scan, which handles traced params natively)."""
-        cfg = self.config
-        if (not cfg.fused_rollouts or cfg.num_samples % 128
-                or self.dtype != jnp.float32
-                or jax.default_backend() != "tpu"):
-            return False
-        p = self.params
-        try:
-            # plant params AND cost/config leaves must be concrete: the
-            # kernel bakes all of them in as compile-time constants, and a
-            # vmapped weight/dt sweep (MPPIConfig is a flax struct) must
-            # fall back to the vmapped scan, which handles tracers
-            for v in (p.mass, p.gravity, p.k_drag_linear, p.k_drag_angular,
-                      p.inertia_xx, p.inertia_yy, p.inertia_zz, *p.wind,
-                      cfg.dt, cfg.q_pos, cfg.q_vel, cfg.q_att, cfg.q_yaw,
-                      cfg.q_rate, *cfg.r_control, cfg.terminal_weight):
-                float(v)
-        except Exception:
-            return False
-        return True
-
     def _stage_cost(self, x, u, target_pos, target_yaw):
         cfg = self.config
         pos_err = x[0:3] - target_pos
@@ -186,18 +150,9 @@ class MPPIController:
         )
         U_cand = jnp.clip(carry.U_nom[None, :, :] + eps, self.u_lo, self.u_hi)
 
-        if self._use_fused():
-            from ..ops.mppi_pallas import mppi_rollout_costs_fused
-
-            weights = (cfg.q_pos, cfg.q_vel, cfg.q_att, cfg.q_yaw,
-                       cfg.q_rate, *cfg.r_control, cfg.terminal_weight)
-            costs = mppi_rollout_costs_fused(
-                x0, U_cand, targets, target_yaw, self.params, cfg.dt,
-                self.u_hover, weights, interpret=False)     # (K,)
-        else:
-            costs = jax.vmap(
-                lambda Us: self._rollout_cost(x0, Us, targets, target_yaw)
-            )(U_cand)                                       # (K,)
+        costs = jax.vmap(
+            lambda Us: self._rollout_cost(x0, Us, targets, target_yaw)
+        )(U_cand)                                           # (K,)
 
         beta = jnp.min(costs)
         w = jax.nn.softmax(-(costs - beta) / cfg.temperature)

@@ -13,7 +13,7 @@ Gains are pytree dataclasses, so a whole gain *batch* can be swept with
 
 from __future__ import annotations
 
-from flax import struct
+from .. import struct
 import jax.numpy as jnp
 
 

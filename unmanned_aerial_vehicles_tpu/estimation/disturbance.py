@@ -30,7 +30,7 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 

@@ -15,16 +15,15 @@ Measurement model: position + attitude (the local-position + attitude
 fusion PX4 exposes to the reference's nodes), plus gyro body rates —
 a linear selection ``H``, with yaw innovation wrapped.
 
-All operations are fixed-shape: one (12, 12) Riccati update per tick maps
-onto the MXU; the Joseph-form covariance update keeps P symmetric PSD in
-f32.
+All operations are fixed-shape: one (12, 12) Riccati update per tick; the
+Joseph-form covariance update keeps P symmetric PSD in f32.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 
@@ -59,24 +58,6 @@ class EKFConfig:
     p0_vel: float = 0.1
     p0_att: float = 0.05
     p0_rate: float = 0.05
-    # Process-Jacobian relinearisation cadence of the FUSED multi-tick EKF
-    # (``ops.tick_pallas.gpmpc_noisy_multitick_fused``): "tick" rebuilds the
-    # analytic F at every tick's estimate (exact — matches the staged
-    # ``ekf_step`` to f32 rounding); "dispatch" linearises ONCE per K-tick
-    # dispatch at the entry estimate, dropping 4 Jacobian builds + 3
-    # (128,128) HIGHEST matmuls per tick when the small covariance-drift
-    # cost (~4e-4 m over 240 ticks at K=8, bounded in tests) is acceptable.
-    # The staged path always relinearises per tick.
-    relinearize_every: str = "tick"
-    # Precision of the fused kernel's covariance-propagation dots (the RK4
-    # Jacobian chain + F P F'): "highest" (6-pass, matches the staged filter
-    # to f32 rounding) or "bf16" (single-pass MXU). bf16 rounding enters only
-    # the covariance — the measurement fusion stays f32 scalar updates and Q
-    # re-regularises P every tick — so it degrades the Kalman gain slightly
-    # rather than the estimate directly; drift vs the staged filter is
-    # bounded at K=8 AND K=20 in tests/test_estimation.py. The staged path
-    # ignores this knob (XLA f32 covariance).
-    cov_precision: str = "highest"
 
     def q_diag(self) -> jnp.ndarray:
         g = lambda v: jnp.full(3, v, jnp.float32) ** 2

@@ -11,17 +11,24 @@ estimator-induced tracking degradation measurable in-graph.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import jax
 import jax.numpy as jnp
 
-from ..control.allocation import attitude_loop_init, geometric_control_allocation
+from ..control.allocation import attitude_loop_init
 from ..control.mpc_linear import LinearMPC
-from ..loop.closed_loop import FlightLoopConfig, _plant_substeps
+from ..gp.residual_gp import ResidualGPConfig, build_horizon_residuals
+from ..loop.closed_loop import (
+    FlightLoopConfig,
+    OnlineLearner,
+    mpc_tick,
+    preview_reference_states,
+)
 from ..models.params import RigidBodyParams
 from ..models.px4_surrogate import RateLoopParams
-from .ekf import EKFConfig, EKFState, ekf_init, ekf_step, measure
+from .ekf import EKFConfig, ekf_init, ekf_step, measure
 
 
 def noisy_mpc_flight_rollout(
@@ -48,33 +55,27 @@ def noisy_mpc_flight_rollout(
 ):
     """MPC flight on ESTIMATED state from noisy sensors.
 
-    Mirrors ``loop.mpc_flight_rollout``'s staged step (same reference/
-    allocation/plant semantics, XLA path) with the controller consuming the
-    EKF estimate. MAINTENANCE NOTE: the preview/clip/allocation block is a
-    deliberate copy of ``closed_loop.mpc_flight_rollout`` — changes there
-    must be mirrored here;
-    ``tests/test_estimation.py::test_noisy_loop_matches_ideal_with_clean_sensors``
-    pins the two paths against silent divergence.
-    Adds ``state_est`` (the per-tick estimate) and ``meas_pos`` (the raw
-    position sample) to the output dict.
+    The same tick as ``loop.mpc_flight_rollout`` (``closed_loop.mpc_tick``)
+    with the controller consuming the EKF estimate while the plant
+    integrates the truth. Adds ``state_est`` (the per-tick estimate) and
+    ``meas_pos`` (the raw position sample) to the output dict.
 
-    ``online_gp`` (an ``OnlineFusedGPConfig``; fused multi-tick path only)
-    composes IN-FLIGHT LEARNING with the estimator: the ring-buffer
-    capture consumes EKF estimates — the reference's actual data path,
-    where the flight node's captured "state" is PX4-EKF2 output
-    (``src/px4/mpc.py:1889-1907,2016-2021``).
+    ``gp_posterior`` flies a frozen posterior with ``gp_gain`` / ``gp_dt``
+    as the conversion (exclusive with ``residual_fn``).
+
+    ``online_gp`` (an ``OnlineFusedGPConfig``) composes IN-FLIGHT LEARNING
+    with the estimator: the ring-buffer capture consumes EKF estimates —
+    the reference's actual data path, where the flight node's captured
+    "state" is PX4-EKF2 output (``src/px4/mpc.py:1889-1907,2016-2021``).
+    Adds ``gp_count``.
 
     ``disturbance_observer`` (a ``DisturbanceEKFConfig``, or ``True`` for
-    defaults; staged path or fused MULTI-TICK path) swaps the 12-state
-    filter for the 15-state augmented observer (``estimation.disturbance``):
-    the EKF additionally estimates a slowly-varying acceleration disturbance
-    and the MPC receives it as stage-wise residual feedforward — wind
-    rejection WITHOUT learning (summed with ``residual_fn`` rows when both
-    are given, so the GP corrects what the observer's constant-accel model
-    cannot). On the fused path the augmented filter runs INSIDE the
-    multi-tick kernel (the 15-state Riccati recursion rides the same padded
-    covariance operand; composes with ``gp_posterior``/``online_gp``).
-    Adds ``disturbance_est`` to the output dict.
+    defaults) swaps the 12-state filter for the 15-state augmented observer
+    (``estimation.disturbance``): the EKF additionally estimates a
+    slowly-varying acceleration disturbance and the MPC receives it as
+    stage-wise residual feedforward — wind rejection WITHOUT learning
+    (summed with the GP rows when both are given, so the GP corrects what
+    the observer's constant-accel model cannot). Adds ``disturbance_est``.
 
     ``nominal_body`` is the observer's process model (default: ``body``
     with the wind zeroed — the controller-side model that does NOT know
@@ -83,12 +84,9 @@ def noisy_mpc_flight_rollout(
     integrates ``body``.
 
     ``wind_fn(t) -> (3,)`` makes the TRUE plant's wind time-varying —
-    gusts, fronts, shear — on the staged path (``body.replace`` per tick)
-    or the fused MULTI-tick path (the kernel takes a ``(k_ticks, 16)``
-    per-tick plant-row operand and indexes it each tick; the single-tick
-    kernel, whose wind is a per-dispatch constant, rejects it). This is the scenario that
-    separates the observer from any frozen model: a GP trained on the old
-    wind (or the reference's 5 s-stale retrain,
+    gusts, fronts, shear (``body.replace`` per tick). This is the scenario
+    that separates the observer from any frozen model: a GP trained on the
+    old wind (or the reference's 5 s-stale retrain,
     ``gaussian_process.py:122``) keeps feeding the old correction, while
     the observer re-converges within a few filter time constants. The
     12-state filter (non-observer runs) keeps its generous
@@ -96,23 +94,27 @@ def noisy_mpc_flight_rollout(
     """
     if initial_state is None:
         initial_state = jnp.zeros(12, dtype).at[2].set(cfg.takeoff_height)
-    if online_gp is not None and not (
-        cfg.use_fused_tick and cfg.ticks_per_dispatch > 1
-    ):
-        raise ValueError(
-            "online_gp= on the noisy loop requires the fused multi-tick "
-            "path (FlightLoopConfig.use_fused_tick=True, "
-            "ticks_per_dispatch > 1)"
-        )
     if initial_dataset is not None and online_gp is None:
         raise ValueError("initial_dataset= only makes sense with online_gp=")
+    if online_gp is not None and (
+        gp_posterior is not None or residual_fn is not None
+    ):
+        raise ValueError(
+            "online_gp= builds its posterior in-flight from the ring buffer "
+            "— don't also pass gp_posterior/residual_fn"
+        )
+    if gp_posterior is not None:
+        if residual_fn is not None:
+            raise ValueError("pass gp_posterior OR residual_fn, not both")
+        residual_fn = functools.partial(
+            build_horizon_residuals, gp_posterior,
+            config=ResidualGPConfig(dt=gp_dt, residual_gain=gp_gain),
+        )
+    learner = (
+        OnlineLearner(online_gp, gp_gain, tighten=False)
+        if online_gp is not None else None
+    )
     if disturbance_observer is not None and disturbance_observer is not False:
-        if cfg.use_fused_tick and cfg.ticks_per_dispatch <= 1:
-            raise ValueError(
-                "disturbance_observer= on the fused path requires the "
-                "multi-tick kernel (ticks_per_dispatch > 1): the "
-                "single-tick kernel carries the 12-state filter"
-            )
         from .disturbance import DisturbanceEKFConfig
 
         dob_cfg = (
@@ -123,46 +125,7 @@ def noisy_mpc_flight_rollout(
             nominal_body = body.replace(wind=(0.0, 0.0, 0.0))
     else:
         dob_cfg = None
-    if wind_fn is not None and cfg.use_fused_tick and (
-        cfg.ticks_per_dispatch <= 1
-    ):
-        raise ValueError(
-            "wind_fn= (time-varying wind) runs on the staged path or the "
-            "fused MULTI-TICK path (ticks_per_dispatch > 1, where the "
-            "kernel reads a per-tick plant row); the single-tick kernel "
-            "takes the wind as a per-dispatch constant"
-        )
-    if cfg.use_fused_tick:
-        # estimate-and-run-fast. Two fused forms:
-        # * single-tick: the tick kernel takes a separate controller-state
-        #   row (MPC + allocation fly the EKF ESTIMATE, the in-kernel plant
-        #   integrates the truth); the (12,12) Riccati step chains in XLA
-        #   between dispatches (VERDICT round-2 #7);
-        # * multi-tick: the EKF itself moves INSIDE the kernel — covariance
-        #   as a (128,128) VMEM operand, measurement fusion as sequential
-        #   scalar updates, F relinearised per tick from the analytic
-        #   Jacobian (ops.tick_pallas.gpmpc_noisy_multitick_fused).
-        if cfg.ticks_per_dispatch > 1:
-            if residual_fn is not None and gp_posterior is None:
-                raise ValueError(
-                    "the noisy multi-tick kernel computes the GP INSIDE "
-                    "the kernel: pass the raw posterior via gp_posterior= "
-                    "instead of residual_fn (or use ticks_per_dispatch=1)"
-                )
-            return _fused_noisy_multitick_rollout(
-                mpc, reference_fn, num_steps, key, ekf_cfg, body, rate_loop,
-                cfg, initial_state, preview=preview,
-                gp_posterior=gp_posterior, gp_gain=gp_gain, gp_dt=gp_dt,
-                online_gp=online_gp, initial_dataset=initial_dataset,
-                dob_cfg=dob_cfg, nominal_body=nominal_body, wind_fn=wind_fn,
-            )
-        return _fused_noisy_rollout(
-            mpc, reference_fn, num_steps, key, ekf_cfg, body, rate_loop,
-            cfg, initial_state, residual_fn, preview, dtype,
-        )
 
-    accel_lo = jnp.asarray(cfg.accel_lower, dtype)
-    accel_hi = jnp.asarray(cfg.accel_upper, dtype)
     keys = jax.random.split(key, num_steps)
     # sensor noise model: the observer's base config when one was passed
     # explicitly (keeps draw + filter models consistent), ekf_cfg otherwise
@@ -175,7 +138,7 @@ def noisy_mpc_flight_rollout(
         )
 
     def step(carry, inputs):
-        state, ekf, mpc_carry, att_carry, prev_control = carry
+        state, ekf, mpc_carry, att_carry, prev_control, gp_state = carry
         i, k = inputs
         t = i.astype(dtype) * cfg.control_dt
         pos_ref, yaw_ref = reference_fn(t)
@@ -203,11 +166,12 @@ def noisy_mpc_flight_rollout(
                 ekf_cfg,
             )
 
-        residuals = (
-            residual_fn(mpc_carry.X_prev, mpc_carry.U_prev)
-            if residual_fn is not None
-            else None
-        )
+        Xg, Ug = mpc_carry.X_prev, mpc_carry.U_prev
+        residuals = residual_fn(Xg, Ug) if residual_fn is not None else None
+        if learner is not None:
+            # the ring buffer learns from ESTIMATES (est_{k-1}, u_{k-1}) ->
+            # est_k: the reference's capture consumes EKF2 output, not truth
+            (ds, post), residuals, _ = learner.update(gp_state, x_est, i, Xg, Ug)
         if dob_cfg is not None:
             dob_rows = disturbance_residual_rows(
                 d_est, mpc.config.horizon, dtype
@@ -215,46 +179,26 @@ def noisy_mpc_flight_rollout(
             residuals = (
                 dob_rows if residuals is None else residuals + dob_rows
             )
-        if preview:
-            ts = t + cfg.control_dt * jnp.arange(
-                1, mpc.config.horizon + 2, dtype=dtype
+        ref_states = (
+            preview_reference_states(
+                reference_fn, t, mpc.config.horizon, cfg.control_dt, dtype
             )
-            pos_refs, _ = jax.vmap(reference_fn)(ts)
-            pos_refs = jnp.asarray(pos_refs, dtype)
-            vel_refs = (pos_refs[1:] - pos_refs[:-1]) / cfg.control_dt
-            ref_states = jnp.concatenate([pos_refs[:-1], vel_refs], axis=1)
-        else:
-            ref_states = None
-
-        u_opt, X_opt, mpc_carry = mpc.solve(
-            mpc_carry, x_est[0:6], pos_ref, residuals,
-            reference_states=ref_states,
+            if preview else None
         )
-        accel_des = jnp.clip(u_opt[0:3], accel_lo, accel_hi)
-        yawrate_des = jnp.clip(u_opt[3], -cfg.yawrate_limit, cfg.yawrate_limit)
-
-        thrust, rate_cmd, att_sp, att_carry = geometric_control_allocation(
-            att_carry, accel_des, yaw_ref, yawrate_des,
-            x_est[6:9], x_est[9:12], dt_attitude=cfg.control_dt,
+        new_state, mpc_carry, att_carry, out = mpc_tick(
+            mpc, cfg, body_t, rate_loop, state, mpc_carry, att_carry,
+            pos_ref, yaw_ref, residuals, ref_states, est=x_est,
         )
-        control = jnp.concatenate([thrust[None], rate_cmd])
-        new_state = _plant_substeps(state, control, body_t, rate_loop, cfg)
-
-        out = {
-            "state": state,
-            "state_est": x_est,
-            "meas_pos": z[0:3],
-            "pos_ref": pos_ref,
-            "vel_ref": X_opt[1, 3:6],
-            "att_ref": att_sp,
-            "thrust": thrust,
-            "rates_cmd": rate_cmd,
-            "accel_cmd": accel_des,
-            "u_mpc": u_opt,
-        }
+        command = out.pop("control")
+        if learner is not None:
+            gp_state = (ds, post, x_est, command)
+            out["gp_count"] = ds.count
+        out["state_est"] = x_est
+        out["meas_pos"] = z[0:3]
         if dob_cfg is not None:
             out["disturbance_est"] = d_est
-        return (new_state, ekf, mpc_carry, att_carry, control), out
+        control = jnp.concatenate([out["thrust"][None], out["rates_cmd"]])
+        return (new_state, ekf, mpc_carry, att_carry, control, gp_state), out
 
     init = (
         initial_state,
@@ -263,519 +207,14 @@ def noisy_mpc_flight_rollout(
         mpc.init_carry(initial_state[0:6]),
         attitude_loop_init(dtype),
         jnp.asarray([1.0, 0.0, 0.0, 0.0], dtype),  # hover command
+        learner.init(initial_state, initial_dataset, dtype)
+        if learner is not None else None,
     )
-    (final_state, ekf, _, _, _), outs = jax.lax.scan(
+    (final_state, ekf, *_), outs = jax.lax.scan(
         step, init, (jnp.arange(num_steps), keys)
     )
     outs["final_state"] = final_state
     outs["final_covariance"] = ekf.P
-    return outs
-
-
-def _fused_noisy_rollout(
-    mpc, reference_fn, num_steps, key, ekf_cfg, body, rate_loop, cfg,
-    initial_state, residual_fn, preview, dtype,
-):
-    """Estimator-in-the-loop on the FUSED tick kernel.
-
-    The kernel's controller-state operand (``ctrl_state_row``) carries the
-    EKF estimate while its plant section integrates the truth — the split a
-    real deployment runs (PX4-EKF2 feeding the controller, physics feeding
-    the sensors). The EKF predict/update — one (12, 12) Riccati step — runs
-    as XLA between kernel dispatches; everything else (shift + ADMM +
-    allocation + plant) stays one Pallas dispatch per tick.
-
-    MAINTENANCE NOTE: the reference/clip/row-packing block deliberately
-    mirrors ``loop.closed_loop._fused_tick_rollout`` — changes there must be
-    mirrored here; the fused-vs-staged noisy parity test pins the pair
-    (``tests/test_estimation.py::test_noisy_fused_matches_staged``).
-    """
-    from ..control.mpc_linear import MPCCarry
-    from ..loop.closed_loop import FlightLoopConfig  # noqa: F401 (docs)
-    from ..models.double_integrator import CONTROL_DIM, STATE_DIM
-    from ..ops.plant_pallas import build_plant_row
-    from ..ops.tick_pallas import build_tick_data, gpmpc_tick_fused
-
-    if not mpc.config.use_fused_controller:
-        raise ValueError("use_fused_tick requires LinearMPCConfig."
-                         "use_fused_controller=True (padded kernel data)")
-    N = mpc.config.horizon
-    m = mpc.n_constraints
-    n_pad = mpc._fc_data.SxT.shape[0]
-    m_pad = mpc._fc_data.P1.shape[0]
-    data = build_tick_data(mpc._fc_data, N, CONTROL_DIM, STATE_DIM)
-    dtype = jnp.float32
-    plant_row = build_plant_row(
-        body.mass, body.gravity, body.k_drag_linear,
-        (rate_loop.tau_roll, rate_loop.tau_pitch, rate_loop.tau_yaw),
-        body.gravity / rate_loop.hover_thrust_norm, body.wind,
-    )
-    statics = dict(
-        rho=mpc.config.admm_rho,
-        iterations=mpc.config.admm_iterations,
-        over_relax=mpc.config.admm_over_relax,
-        dt=cfg.control_dt, substeps=cfg.plant_substeps,
-        accel_lo=tuple(cfg.accel_lower), accel_hi=tuple(cfg.accel_upper),
-        yawrate_limit=cfg.yawrate_limit,
-        fallback_error_m=cfg.fallback_error_m,
-        fallback_thrust_ceiling=cfg.fallback_thrust_ceiling,
-        fallback_accel_scale=cfg.fallback_accel_scale,
-        loop_precision=cfg.fused_tick_loop_precision,
-        nnu=data.Nnu, nnx=data.Nnx,
-        interpret=jax.default_backend() == "cpu",
-    )
-    keys = jax.random.split(key, num_steps)
-
-    def row(v, size):
-        return jnp.zeros((1, size), dtype).at[0, : v.shape[0]].set(
-            v.astype(dtype)
-        )
-
-    def step(carry, inputs):
-        state, ekf, mpc_carry, integral, prev_control = carry
-        i, k = inputs
-        t = i.astype(dtype) * cfg.control_dt
-        pos_ref, yaw_ref = reference_fn(t)
-        pos_ref = jnp.asarray(pos_ref, dtype)
-        yaw_ref = jnp.asarray(yaw_ref, dtype)
-
-        # sensor sample of the TRUE state; EKF predicts with the control
-        # that was actually applied over the last interval
-        z_meas = measure(state, k, ekf_cfg)
-        ekf, x_est = ekf_step(
-            ekf, prev_control, z_meas, body, rate_loop, cfg.control_dt,
-            ekf_cfg,
-        )
-
-        if residual_fn is not None:
-            residuals = residual_fn(mpc_carry.X_prev, mpc_carry.U_prev)
-            w = (cfg.control_dt * residuals.astype(dtype)).reshape(-1)
-        else:
-            w = jnp.zeros(N * STATE_DIM, dtype)
-        if preview:
-            ts = t + cfg.control_dt * jnp.arange(1, N + 2, dtype=dtype)
-            pos_refs, _ = jax.vmap(reference_fn)(ts)
-            pos_refs = jnp.asarray(pos_refs, dtype)
-            vel_refs = (pos_refs[1:] - pos_refs[:-1]) / cfg.control_dt
-            ref = jnp.concatenate([pos_refs[:-1], vel_refs], axis=1).reshape(-1)
-        else:
-            ref = jnp.tile(
-                jnp.concatenate([pos_ref, jnp.zeros(3, dtype)]), N
-            )
-        misc = jnp.concatenate([yaw_ref[None], integral])
-
-        packed, z, y, U_row, Xt_row = gpmpc_tick_fused(
-            data,
-            row(state, n_pad), row(w, n_pad), row(ref, n_pad),
-            row(misc, n_pad),
-            row(mpc_carry.slack, m_pad), row(mpc_carry.dual, m_pad),
-            plant_row,
-            ctrl_state_row=row(x_est, n_pad),
-            **statics,
-        )
-        slack = z[0, :m]
-        new_state = packed[0, 0:12]
-        control = packed[0, 12:16]
-        att_sp = packed[0, 16:19]
-        new_integral = packed[0, 19:22]
-        accel_cmd = packed[0, 22:25]
-        U = slack[: N * CONTROL_DIM].reshape(N, CONTROL_DIM)
-        X_tail = Xt_row[0, : N * STATE_DIM].reshape(N, STATE_DIM)
-        X_opt = jnp.concatenate([x_est[None, 0:6], X_tail], axis=0)
-        mpc_carry = MPCCarry(
-            slack=slack, dual=y[0, :m], X_prev=X_opt, U_prev=U
-        )
-        out = {
-            "state": state,
-            "state_est": x_est,
-            "meas_pos": z_meas[0:3],
-            "pos_ref": pos_ref,
-            "vel_ref": X_opt[1, 3:6],
-            "att_ref": att_sp,
-            "thrust": control[0],
-            "rates_cmd": control[1:4],
-            "accel_cmd": accel_cmd,
-            "u_mpc": U[0],
-        }
-        return (new_state, ekf, mpc_carry, new_integral, control), out
-
-    x0 = initial_state.astype(dtype)
-    init = (
-        x0,
-        ekf_init(x0, ekf_cfg, dtype),
-        mpc.init_carry(x0[0:6]),
-        jnp.zeros(3, dtype),
-        jnp.asarray([1.0, 0.0, 0.0, 0.0], dtype),  # hover command
-    )
-    (final_state, ekf, _, _, _), outs = jax.lax.scan(
-        step, init, (jnp.arange(num_steps), keys)
-    )
-    outs["final_state"] = final_state
-    outs["final_covariance"] = ekf.P
-    return outs
-
-
-def _fused_noisy_multitick_rollout(
-    mpc, reference_fn, num_steps, key, ekf_cfg, body, rate_loop, cfg,
-    initial_state, preview=False, gp_posterior=None, gp_gain=0.1,
-    gp_dt=0.02, online_gp=None, initial_dataset=None,
-    dob_cfg=None, nominal_body=None, wind_fn=None,
-):
-    """EKF INSIDE the multi-tick kernel: K whole noisy ticks per dispatch.
-
-    The covariance recursion runs in-kernel ((128,128) padded P, nine
-    sequential scalar measurement fusions — exact for the diagonal-R
-    direct-measurement model); the process Jacobian F is relinearised
-    PER TICK in-kernel from the hand-derived analytic Jacobian chained
-    through the RK4 stages (``ops.plant_pallas._jac_padded``) — the same
-    chain rule as the staged ``ekf_step``'s ``jacfwd``, so no frozen-F
-    approximation remains by default (parity pinned at K=20 in
-    ``tests/test_estimation.py::test_noisy_multitick_matches_staged``).
-    ``EKFConfig.relinearize_every="dispatch"`` opts back into the cheaper
-    once-per-dispatch linearisation (state prediction stays per-tick
-    exact; only the covariance sees the frozen F) when its small bounded
-    drift is an acceptable price for dropping the per-tick Jacobian work.
-    ``EKFConfig.cov_precision="bf16"`` additionally runs the covariance-
-    propagation dots (RK4 Jacobian chain + F P F') single-pass on the MXU
-    instead of 6-pass HIGHEST — the rounding enters the Kalman gain, not
-    the estimate arithmetic, and Q re-regularises P every tick (drift
-    bounded on chip in ``tests_tpu``).
-    The measurement-noise stream reproduces the staged loop's PRNG scheme
-    exactly (same keys, same draws), so trajectories are comparable
-    draw-for-draw.
-    """
-    from ..control.mpc_linear import MPCCarry  # noqa: F401 (docs)
-    from ..models.double_integrator import CONTROL_DIM, STATE_DIM
-    from ..ops.plant_pallas import build_plant_row
-    from ..ops.tick_pallas import (
-        EKF_MEAS_IDX,
-        PK,
-        build_dob_bdist,
-        build_gp_rows,
-        build_tick_data,
-        gpmpc_noisy_multitick_fused,
-    )
-    from .ekf import MEAS_DIM
-
-    if not mpc.config.use_fused_controller:
-        raise ValueError("use_fused_tick requires LinearMPCConfig."
-                         "use_fused_controller=True (padded kernel data)")
-    use_dob = dob_cfg is not None
-    if use_dob:
-        # the observer's knobs (relinearisation cadence, covariance
-        # precision, sensor model) live on its base EKFConfig — keep the
-        # noise draw and the filter model consistent, exactly the staged
-        # path's meas_cfg choice
-        ekf_cfg = dob_cfg.base
-    if ekf_cfg.relinearize_every not in ("tick", "dispatch"):
-        raise ValueError(
-            f"EKFConfig.relinearize_every={ekf_cfg.relinearize_every!r}: "
-            "expected 'tick' (exact, default) or 'dispatch' (frozen F "
-            "within each multi-tick dispatch)"
-        )
-    relin_per_tick = ekf_cfg.relinearize_every == "tick"
-    if ekf_cfg.cov_precision not in ("highest", "bf16"):
-        raise ValueError(
-            f"EKFConfig.cov_precision={ekf_cfg.cov_precision!r}: "
-            "expected 'highest' (6-pass, staged-parity) or 'bf16' "
-            "(single-pass covariance dots)"
-        )
-    K = cfg.ticks_per_dispatch
-    if num_steps % K != 0:
-        raise ValueError(f"num_steps={num_steps} not divisible by "
-                         f"ticks_per_dispatch={K}")
-    N = mpc.config.horizon
-    n_pad = mpc._fc_data.SxT.shape[0]
-    m_pad = mpc._fc_data.P1.shape[0]
-    data = build_tick_data(mpc._fc_data, N, CONTROL_DIM, STATE_DIM)
-    dtype = jnp.float32
-    if wind_fn is None:
-        plant_chunks = None
-        plant_row = build_plant_row(
-            body.mass, body.gravity, body.k_drag_linear,
-            (rate_loop.tau_roll, rate_loop.tau_pitch, rate_loop.tau_yaw),
-            body.gravity / rate_loop.hover_thrust_norm, body.wind,
-        )
-    else:
-        # time-varying wind: PER-TICK plant rows (k_ticks, 16) per dispatch
-        # — the kernel indexes the row at each tick, so the semantics match
-        # the staged loop's body.replace(wind=wind_fn(t)) exactly
-        ts_all = jnp.arange(num_steps, dtype=jnp.float32) * cfg.control_dt
-        winds = jax.vmap(
-            lambda t: jnp.asarray(wind_fn(t), jnp.float32)
-        )(ts_all)
-        rows = jax.vmap(
-            lambda w: build_plant_row(
-                body.mass, body.gravity, body.k_drag_linear,
-                (rate_loop.tau_roll, rate_loop.tau_pitch, rate_loop.tau_yaw),
-                body.gravity / rate_loop.hover_thrust_norm, w,
-            )[0]
-        )(winds)                                      # (T, 16)
-        plant_chunks = rows.reshape(num_steps // K, K, -1)
-        plant_row = None
-    online = online_gp is not None
-    if online:
-        # ONLINE learning on the noisy tier: the GP's training data comes
-        # from the EKF ESTIMATE — the reference's ACTUAL data path (the
-        # flight node captures from its position_callback state, which IS
-        # PX4-EKF2 output: src/px4/mpc.py:1889-1907,2016-2021) — while the
-        # in-kernel plant integrates the truth. Capture/refit machinery
-        # mirrors loop.closed_loop._multitick_rollout's online block.
-        if gp_posterior is not None:
-            raise ValueError("online_gp builds its posterior in-flight; "
-                             "drop gp_posterior")
-        if online_gp.refit_every < K:
-            raise ValueError(
-                f"online_gp.refit_every={online_gp.refit_every} must be "
-                f">= ticks_per_dispatch={K} (refits happen at dispatch "
-                "boundaries)"
-            )
-        from ..gp.residual_gp import (
-            add_training_samples_batch,
-            empty_dataset,
-            fit_residual_gp_masked,
-        )
-
-        gcfg = online_gp.gp
-        dataset0 = (
-            initial_dataset if initial_dataset is not None
-            else empty_dataset(gcfg.max_data_points, dtype)
-        )
-
-        def fit_scaled(ds):
-            if online_gp.standardize_inputs:
-                from ..gp.residual_gp import (
-                    masked_input_stats,
-                    standardized_params,
-                )
-
-                shift, std = masked_input_stats(ds)
-                return fit_residual_gp_masked(
-                    ds, gcfg,
-                    params=standardized_params(ds, gcfg, std=std),
-                    x_shift=shift,
-                )
-            return fit_residual_gp_masked(ds, gcfg)
-
-        gain0 = jnp.where(
-            dataset0.count >= online_gp.min_samples, gp_gain, 0.0
-        )
-        gp0 = build_gp_rows(
-            fit_scaled(dataset0), gain0,
-            control_dt=cfg.control_dt, gp_dt=gcfg.dt,
-        )
-    else:
-        gp0 = (
-            build_gp_rows(gp_posterior, gp_gain, control_dt=cfg.control_dt,
-                          gp_dt=gp_dt)
-            if gp_posterior is not None else None
-        )
-    statics = dict(
-        k_ticks=K, use_gp=online or gp_posterior is not None,
-        rho=mpc.config.admm_rho,
-        iterations=mpc.config.admm_iterations,
-        over_relax=mpc.config.admm_over_relax,
-        dt=cfg.control_dt, substeps=cfg.plant_substeps,
-        accel_lo=tuple(cfg.accel_lower), accel_hi=tuple(cfg.accel_upper),
-        yawrate_limit=cfg.yawrate_limit,
-        fallback_error_m=cfg.fallback_error_m,
-        fallback_thrust_ceiling=cfg.fallback_thrust_ceiling,
-        fallback_accel_scale=cfg.fallback_accel_scale,
-        loop_precision=cfg.fused_tick_loop_precision,
-        n=N, nu=CONTROL_DIM, nx=STATE_DIM,
-        interpret=jax.default_backend() == "cpu",
-        relinearize_per_tick=relin_per_tick,
-        cov_precision=ekf_cfg.cov_precision,
-        use_dob=use_dob,
-    )
-
-    # EKF constants in kernel layouts (augmented 15-state diagonals in
-    # observer mode; the padded (PK, PK) operands are shape-invariant)
-    meas_idx = jnp.asarray(EKF_MEAS_IDX)
-    q_diag = dob_cfg.q_diag() if use_dob else ekf_cfg.q_diag()
-    p0_diag = dob_cfg.p0_diag() if use_dob else ekf_cfg.p0_diag()
-    nlive = q_diag.shape[0]
-    q_mat = jnp.zeros((PK, PK), dtype).at[
-        jnp.arange(nlive), jnp.arange(nlive)
-    ].set(q_diag.astype(dtype))
-    rdiag_row = jnp.zeros((1, PK), dtype).at[0, meas_idx].set(
-        ekf_cfg.r_diag().astype(dtype)
-    )
-    p0 = jnp.zeros((PK, PK), dtype).at[
-        jnp.arange(nlive), jnp.arange(nlive)
-    ].set(p0_diag.astype(dtype))
-    if use_dob:
-        if nominal_body is None:
-            nominal_body = body.replace(wind=(0.0, 0.0, 0.0))
-        nominal_row = build_plant_row(
-            nominal_body.mass, nominal_body.gravity,
-            nominal_body.k_drag_linear,
-            (rate_loop.tau_roll, rate_loop.tau_pitch, rate_loop.tau_yaw),
-            nominal_body.gravity / rate_loop.hover_thrust_norm,
-            nominal_body.wind,
-        )
-        bdist = build_dob_bdist(cfg.control_dt)
-    else:
-        nominal_row = None
-        bdist = None
-
-    # staged PRNG scheme, precomputed: keys = split(key, T); draw 9 per tick
-    keys = jax.random.split(key, num_steps)
-    sqrt_r = jnp.sqrt(ekf_cfg.r_diag()).astype(dtype)
-    noise9 = jax.vmap(
-        lambda k: sqrt_r * jax.random.normal(k, (MEAS_DIM,), dtype)
-    )(keys)                                              # (T, 9)
-    noise_rows = jnp.zeros((num_steps, n_pad), dtype).at[
-        :, meas_idx
-    ].set(noise9)
-    noise_chunks = noise_rows.reshape(num_steps // K, K, n_pad)
-
-    def one_ref(t):
-        pos_ref, yaw_ref = reference_fn(t)
-        pos_ref = jnp.asarray(pos_ref, dtype)
-        yaw_ref = jnp.asarray(yaw_ref, dtype)
-        if preview:
-            ts = t + cfg.control_dt * jnp.arange(1, N + 2, dtype=dtype)
-            pos_refs, _ = jax.vmap(reference_fn)(ts)
-            pos_refs = jnp.asarray(pos_refs, dtype)
-            vel_refs = (pos_refs[1:] - pos_refs[:-1]) / cfg.control_dt
-            ref = jnp.concatenate([pos_refs[:-1], vel_refs], axis=1).reshape(-1)
-        else:
-            ref = jnp.tile(jnp.concatenate([pos_ref, jnp.zeros(3, dtype)]), N)
-        row = (
-            jnp.zeros(n_pad, dtype)
-            .at[: N * STATE_DIM].set(ref)
-            .at[n_pad - 1].set(yaw_ref)
-        )
-        return row, pos_ref
-
-    def row(v, size):
-        return jnp.zeros((1, size), dtype).at[0, : v.shape[0]].set(
-            v.astype(dtype)
-        )
-
-    def step(carry, inputs):
-        (state_row, est_row, P, aux_row, xtail_row, z, y,
-         dataset, gp, pending) = carry
-        if plant_chunks is None:
-            i, noise_k = inputs
-            p_operand = plant_row
-        else:
-            i, noise_k, p_operand = inputs   # (K, 16) per-tick plant rows
-        ts = (i * K + jnp.arange(K)).astype(dtype) * cfg.control_dt
-        refs, pos_refs = jax.vmap(one_ref)(ts)
-
-        (packed, state_row, est_row, P, aux_row, xtail_row, z, y) = (
-            gpmpc_noisy_multitick_fused(
-                data, gp, state_row, est_row, P, aux_row, xtail_row, z, y,
-                refs, noise_k, p_operand, q_mat, rdiag_row,
-                nominal_row=nominal_row, bdist_mat=bdist,
-                **statics,
-            )
-        )
-        P = 0.5 * (P + P.T)   # re-symmetrize f32 drift once per dispatch
-        out = {
-            "state": packed[:, 0:12],
-            "state_est": packed[:, 32:44],
-            "meas_pos": packed[:, 0:3] + noise_k[:, 0:3],
-            "pos_ref": pos_refs,
-            "vel_ref": packed[:, 29:32],
-            "att_ref": packed[:, 16:19],
-            "thrust": packed[:, 12],
-            "rates_cmd": packed[:, 13:16],
-            "accel_cmd": packed[:, 22:25],
-            "u_mpc": packed[:, 25:29],
-        }
-        if use_dob:
-            out["disturbance_est"] = packed[:, 44:47]
-        if online:
-            # --- per-tick data capture from the ESTIMATE ------------------
-            # the reference's capture consumes EKF2 output, not truth
-            # (mpc.py:1889-1907,2016-2021): transitions est_k -> est_{k+1}
-            # under the applied (clipped) command. est_{k+1} for the LAST
-            # tick of a dispatch does not exist yet (the kernel's est
-            # carry-out equals packed[K-1, 32:44]: the next estimate is
-            # only formed by the NEXT dispatch's first predict+fuse), so
-            # that tick's sample is DEFERRED — carried as (est, u) and
-            # completed one dispatch later against packed[0, 32:44].
-            est_rows = packed[:, 32:44]
-            yr = jnp.clip(
-                packed[:, 28], -cfg.yawrate_limit, cfg.yawrate_limit
-            )
-            if cfg.fallback_error_m > 0.0:
-                # the noisy kernel's divergence guard watches the
-                # controller-visible (estimated) state; mirror it so
-                # captured controls match applied ones on fallback ticks
-                err2 = jnp.sum(
-                    (refs[:, 0:3] - packed[:, 32:35]) ** 2, axis=1
-                )
-                yr = jnp.where(err2 > cfg.fallback_error_m**2, 0.0, yr)
-            controls = jnp.concatenate(
-                [packed[:, 22:25], yr[:, None]], axis=1
-            )
-            pend_est, pend_u, pend_ok = pending
-            est_pre = jnp.concatenate(
-                [pend_est[None, :], est_rows[:-1]], axis=0
-            )
-            ctl_pre = jnp.concatenate(
-                [pend_u[None, :], controls[:-1]], axis=0
-            )
-            # row j=0 completes the deferred sample (next = this
-            # dispatch's first estimate); rows 1..K-1 are the in-dispatch
-            # transitions t -> t+1; chronological order is preserved
-            valid = jnp.concatenate(
-                [pend_ok[None], jnp.ones((K - 1,), bool)]
-            )
-            dataset = add_training_samples_batch(
-                dataset, est_pre, ctl_pre, est_rows, gcfg, valid=valid
-            )
-            pending = (est_rows[-1], controls[-1], jnp.array(True))
-            out["gp_count"] = jnp.broadcast_to(dataset.count, (K,))
-
-            refit = (((i + 1) * K) % online_gp.refit_every < K) & (
-                dataset.count >= online_gp.min_samples
-            )
-
-            def do_refit(ds):
-                return build_gp_rows(
-                    fit_scaled(ds), gp_gain,
-                    control_dt=cfg.control_dt, gp_dt=gcfg.dt,
-                )
-
-            gp = jax.lax.cond(refit, do_refit, lambda ds: gp, dataset)
-        return (
-            state_row, est_row, P, aux_row, xtail_row, z, y,
-            dataset, gp, pending,
-        ), out
-
-    x0 = initial_state.astype(dtype)
-    # staged init: estimate starts at the true state, hover command applied
-    init = (
-        row(x0, n_pad),
-        row(x0, n_pad),
-        p0,
-        row(jnp.concatenate([
-            x0[0:6], jnp.zeros(5, dtype),
-            jnp.asarray([1.0, 0.0, 0.0, 0.0], dtype),
-        ]), n_pad),
-        row(jnp.tile(x0[0:6], N), n_pad),
-        jnp.zeros((1, m_pad), dtype),
-        jnp.zeros((1, m_pad), dtype),
-        dataset0 if online else jnp.zeros((), dtype),
-        gp0,
-        # deferred last-tick capture: (est, u, valid) — invalid until the
-        # first dispatch completes
-        (jnp.zeros(12, dtype), jnp.zeros(4, dtype), jnp.array(False)),
-    )
-    xs = (jnp.arange(num_steps // K), noise_chunks)
-    if plant_chunks is not None:
-        xs = xs + (plant_chunks,)
-    (state_row, est_row, P, *_), outs = jax.lax.scan(step, init, xs)
-    outs = jax.tree_util.tree_map(
-        lambda a: a.reshape((num_steps,) + a.shape[2:]), outs
-    )
-    outs["final_state"] = state_row[0, 0:12]
-    outs["final_covariance"] = P[:nlive, :nlive]
     return outs
 
 
@@ -805,9 +244,8 @@ def noisy_rigid_mpc_rollout(
     ``src/px4/mpc_FULL.py:86-549``), linearised per tick with ``jacfwd``
     through the RK4 step. ``controller`` is any of the family's engines —
     the shared ``solve(carry, state12, target_pos, target_yaw)`` surface
-    (``cli fly`` / ``tools/bench_controllers.rollout_12state`` shape). The
-    controller flies the ESTIMATE; the plant integrates the truth through
-    the fused plant kernel (``ops.rigid_plant_pallas``) on TPU.
+    (the ``cli fly`` shape). The
+    controller flies the ESTIMATE; the plant integrates the truth.
 
     ``plant_step_fn(x, u) -> x_next`` overrides the TRUTH plant and
     ``process_step_fn`` the EKF's model (default: same as the plant) —
@@ -835,7 +273,6 @@ def noisy_rigid_mpc_rollout(
     """
     from ..models import X500_PARAMS
     from ..models.rigid_body import rigid_body_rk4_step
-    from ..ops.rigid_plant_pallas import rigid_body_rk4_step_fast
 
     if body is None:
         body = X500_PARAMS
@@ -853,15 +290,10 @@ def noisy_rigid_mpc_rollout(
                 "track the disturbance being estimated"
             )
     elif plant_step_fn is None:
-        # TRUTH integrates through the backend-aware fast step (Pallas
-        # kernel on TPU — 2e-8 parity with the XLA step,
-        # tests/test_rigid_plant_kernel); the EKF process model defaults
-        # to the XLA RK4 step (jacfwd-differentiable)
-        plant_step_fn = lambda x, u: rigid_body_rk4_step_fast(x, u, body,
-                                                              dt)
+        # truth and the EKF process model: the same RK4 step
+        plant_step_fn = lambda x, u: rigid_body_rk4_step(x, u, body, dt)
         if process_step_fn is None:
-            process_step_fn = lambda x, u: rigid_body_rk4_step(x, u, body,
-                                                               dt)
+            process_step_fn = plant_step_fn
     elif process_step_fn is None:
         process_step_fn = plant_step_fn
     ekf_step_fn = process_step_fn
@@ -991,7 +423,6 @@ def noisy_ltv_rollout(
     """
     from ..models import GZ_QUADROTOR_PARAMS
     from ..models.rigid_body import rigid_body_rk4_step
-    from ..ops.rigid_plant_pallas import rigid_body_rk4_step_fast
 
     if body is None:
         body = GZ_QUADROTOR_PARAMS
@@ -1018,9 +449,7 @@ def noisy_ltv_rollout(
         dob_cfg = None
     meas_cfg = dob_cfg.base if dob_cfg is not None else ekf_cfg
 
-    plant_step_fn = lambda x, u: rigid_body_rk4_step_fast(
-        x, u, body, dt_plant
-    )
+    plant_step_fn = lambda x, u: rigid_body_rk4_step(x, u, body, dt_plant)
     process_body = nominal_body if dob_cfg is not None else body
     process_step_fn = lambda x, u: rigid_body_rk4_step(x, u, process_body,
                                                        dt_plant)

@@ -14,7 +14,7 @@ Rebuild of the reference's two GP stacks on one engine:
   parity to 1e-6 against the flight-data models holds (SURVEY.md section 7
   stage 3).
 
-TPU-first design: fitting is Cholesky + triangular solves on padded
+Design: fitting is Cholesky + triangular solves on padded
 matrices, prediction is a single fused ``K_* @ alpha`` GEMM (batched over
 test points AND output dimensions — the reference evaluates 25 sequential
 sklearn predictions per control tick, SURVEY.md section 3.1 hot loop #1);
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 import optax
@@ -77,8 +77,15 @@ class GPPosterior:
     # shift-invariant, so predictions are mathematically unchanged — this
     # exists purely to keep the f32 squared-distance trick well-conditioned
     # for standardized-input (ARD) fits, where uncentered features like
-    # z ~ 3 m / std ~ 5 mm otherwise cancel catastrophically on TPU
+    # z ~ 3 m / std ~ 5 mm otherwise cancel catastrophically in f32
     x_shift: jnp.ndarray | None = None   # (d,)
+
+
+def _mm(a, b):
+    # K_* @ alpha sums n_train products per output; at the GPU's default f32
+    # matmul precision (TF32, ~3 decimal digits) that sum loses the
+    # residual's small terms, so it runs at full f32
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _train_kernel(params: GPParams, X: jnp.ndarray, jitter: float) -> jnp.ndarray:
@@ -133,7 +140,7 @@ def predict(
     if posterior.x_shift is not None:
         X_test = X_test - posterior.x_shift
     K_star = rbf_kernel(X_test, posterior.X_train, p.length_scale, p.signal_variance)
-    mean = K_star @ posterior.alpha * posterior.y_std + posterior.y_mean
+    mean = _mm(K_star, posterior.alpha) * posterior.y_std + posterior.y_mean
 
     v = jax.scipy.linalg.solve_triangular(posterior.chol, K_star.T, lower=True)
     prior_var = rbf_kernel_diag(X_test, p.signal_variance)
@@ -155,7 +162,7 @@ def predict_mean(posterior: GPPosterior, X_test: jnp.ndarray) -> jnp.ndarray:
     if posterior.x_shift is not None:
         X_test = X_test - posterior.x_shift
     K_star = rbf_kernel(X_test, posterior.X_train, p.length_scale, p.signal_variance)
-    return K_star @ posterior.alpha * posterior.y_std + posterior.y_mean
+    return _mm(K_star, posterior.alpha) * posterior.y_std + posterior.y_mean
 
 
 def log_marginal_likelihood(
@@ -245,7 +252,7 @@ def optimize_hyperparameters_restarts(
     """Multi-start LML maximisation (sklearn's ``n_restarts_optimizer``;
     the reference trainer uses 3 restarts, ``gp_trainer.py:169``).
 
-    TPU-first: the restarts are a ``vmap`` over perturbed log-space inits —
+    The restarts are a ``vmap`` over perturbed log-space inits —
     all optimisations run as one batched program — followed by an argmin.
     """
     noise = jax.random.normal(

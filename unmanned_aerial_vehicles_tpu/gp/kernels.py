@@ -1,13 +1,12 @@
 """RBF kernel computations (the GP hot kernel).
 
 The squared-distance "GEMM trick" of the reference's from-scratch GP
-(``/root/reference/quadrotor_gp_mpc/quadrotor_gp_mpc/gaussian_process.py:26-41``)
-is already the right shape for the MXU: the dominant cost of a kernel matrix
-is one ``X1 @ X2.T`` matmul. We keep that structure, add ARD support
-(per-dimension length scales, covering the reference's sklearn/GPflow
-variants at ``src/px4/gp_trainer.py:139-146`` and ``src/px4/gp.py:120-135``),
-and route large problems through a Pallas kernel (``ops.rbf_pallas``) that
-fuses distance + exp in VMEM.
+(``/root/reference/quadrotor_gp_mpc/quadrotor_gp_mpc/gaussian_process.py:26-41``):
+the dominant cost of a kernel matrix is one ``X1 @ X2.T`` matmul. We keep
+that structure and add ARD support (per-dimension length scales, covering
+the reference's sklearn/GPflow variants at ``src/px4/gp_trainer.py:139-146``
+and ``src/px4/gp.py:120-135``). The batched posterior mean has its own
+fused kernel (``ops.rbf_triton``, chosen by ``backend.gp_posterior_mean``).
 """
 
 from __future__ import annotations
@@ -16,10 +15,10 @@ import jax
 import jax.numpy as jnp
 
 # The squared-distance trick cancels large ||x||^2 terms against the cross
-# matmul — at the TPU MXU's default (bfloat16-accumulated) precision that
-# cancellation destroys the kernel matrix's positive-definiteness and the
-# downstream Cholesky NaNs out. These GEMMs are tiny next to the MXU's
-# throughput, so full f32 precision is effectively free.
+# matmul. At a reduced matmul precision (TF32 on the GPU's tensor cores,
+# ~3 decimal digits) that cancellation destroys the Gram matrix's
+# positive-definiteness and the downstream Cholesky NaNs out, so the cross
+# product runs at full f32.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 

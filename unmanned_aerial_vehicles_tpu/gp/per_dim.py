@@ -9,7 +9,7 @@ Rebuild of the reference's per-dimension trainer and runtime:
 * ``PreTrainedGP.predict_residual`` (``src/px4/pretrained_gp.py:13-111``):
   per-dimension prediction with std unscaling.
 
-TPU-first: the six sequential sklearn fits become ONE ``vmap`` over the
+The six sequential sklearn fits become ONE ``vmap`` over the
 output axis of the shared-input GP — six Cholesky factorisations batched
 into a single kernel launch, and the per-dimension ARD hyperparameter
 optimisation is a vmapped fixed-step LML ascent (the reference restarts
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 

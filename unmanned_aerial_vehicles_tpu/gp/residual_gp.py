@@ -7,7 +7,7 @@ Functional rebuild of ``SimpleQuadrotorGP``
 quality filters and its sklearn kernel configuration
 (``RBF(0.5) + WhiteKernel(0.1)``, ``alpha=1e-4``, ``normalize_y=True``).
 
-TPU-first pieces:
+Design:
 
 * ``ResidualDataset`` is a fixed-capacity ring buffer pytree — data
   collection is a masked in-graph update (jit/scan-safe), replacing the
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 
@@ -109,75 +109,6 @@ def add_training_sample(
     return ResidualDataset(X=X, Y=Y, head=head, count=count)
 
 
-def add_training_samples_batch(
-    dataset: ResidualDataset,
-    states: jnp.ndarray,        # (K, >=6)
-    controls: jnp.ndarray,      # (K, >=4)
-    states_next: jnp.ndarray,   # (K, >=6)
-    config: ResidualGPConfig = ResidualGPConfig(),
-    valid: jnp.ndarray | None = None,
-) -> ResidualDataset:
-    """K ring-buffer inserts as ONE masked scatter (exactly equal to K
-    sequential ``add_training_sample`` calls — pinned by
-    ``tests/test_online_fused.py``).
-
-    The fused online path captures a whole dispatch's transitions at once;
-    K dependent scatters cost ~6.5 us/tick on v5e where this batched form
-    is ~free. Rejected samples are routed to an out-of-bounds slot and
-    dropped by the scatter; accepted samples take consecutive ring slots
-    via a prefix count, so intra-batch ordering matches the sequential
-    semantics (including wrap-around).
-
-    ``valid``: optional (K,) bool mask — rows marked False are dropped
-    before the quality filters (used by the estimate-fed online capture,
-    whose first slot carries the previous dispatch's deferred transition
-    and is invalid on the very first dispatch).
-    """
-    K = states.shape[0]
-    capacity = dataset.X.shape[0]
-    if K > capacity:
-        # >capacity inserts would wrap onto duplicate slots, whose scatter
-        # ordering XLA does not define (sequential semantics = last wins)
-        raise ValueError(
-            f"batch of {K} inserts exceeds ring capacity {capacity}"
-        )
-    s6 = states[:, :6]
-    n6 = states_next[:, :6]
-    c4 = controls[:, :4]
-
-    velocity_norm = jnp.linalg.norm(s6[:, 3:6], axis=1)
-    control_norm = jnp.linalg.norm(c4[:, :3], axis=1)
-    nominal_next = jax.vmap(
-        lambda s, c: double_integrator_step(s, c, config.dt)
-    )(s6, c4)
-    residual = n6 - nominal_next
-    residual_norm = jnp.linalg.norm(residual, axis=1)
-    accept = (
-        (velocity_norm <= config.max_velocity_norm)
-        & (control_norm <= config.max_control_norm)
-        & (residual_norm <= config.max_residual_norm)
-    )
-    if valid is not None:
-        accept = accept & valid
-
-    acc_i = accept.astype(jnp.int32)
-    # dtype=int32 throughout: jnp reductions promote to int64 under x64,
-    # which would flip the scan-carried head/count dtypes mid-loop
-    before = jnp.cumsum(acc_i, dtype=jnp.int32) - acc_i
-    slots = jnp.where(
-        accept, (dataset.head + before) % capacity, capacity  # OOB -> drop
-    )
-    rows = jnp.concatenate([s6, c4], axis=1).astype(dataset.X.dtype)
-    X = dataset.X.at[slots].set(rows, mode="drop")
-    Y = dataset.Y.at[slots].set(residual.astype(dataset.Y.dtype), mode="drop")
-    n_new = jnp.sum(acc_i, dtype=jnp.int32)
-    return ResidualDataset(
-        X=X, Y=Y,
-        head=dataset.head + n_new,
-        count=jnp.minimum(dataset.count + n_new, capacity),
-    )
-
-
 def default_params(config: ResidualGPConfig = ResidualGPConfig()) -> GPParams:
     return GPParams.create(
         length_scale=config.length_scale,
@@ -201,9 +132,8 @@ def standardized_params(
     brings that practice to the online path: an RBF over ``(x - mu)/sigma``
     equals ARD with per-dim length scales ``l * sigma_d`` (the mean shift
     cancels in pairwise distances), so the existing kernel operands express
-    it exactly — no kernel change, opt-in via
-    ``OnlineFusedGPConfig.standardize_inputs`` (default stays bit-faithful
-    to the reference).
+    it exactly, opt-in via ``OnlineFusedGPConfig.standardize_inputs``
+    (default stays bit-faithful to the reference).
 
     ``sigma_d`` is the masked per-dim std over valid ring-buffer rows;
     zero/degenerate dims fall back to 1 (plain RBF distance on that lane).
@@ -352,40 +282,88 @@ def build_horizon_residuals(
     return D.at[:, 3:6].set(config.residual_gain * dyn[:, 3:6])
 
 
-def build_horizon_residuals_batched_fused(
+def build_horizon_residuals_batched(
     posterior: GPPosterior,
     X_guess: jnp.ndarray,
     U_guess: jnp.ndarray,
     config: ResidualGPConfig = ResidualGPConfig(),
-    precision: str = "high",
     interpret: bool = False,
 ) -> jnp.ndarray:
-    """Flight-batched ``build_horizon_residuals`` through the fused Pallas
-    posterior-mean kernel (``ops.rbf_pallas.rbf_posterior_mean_pallas``).
-
-    Semantically equal to ``vmap(build_horizon_residuals)`` — same feature
-    assembly, same ``/dt`` + ``residual_gain`` conversion
-    (``src/px4/mpc.py:1490-1506``) — but the (B*N, n_train) cross-kernel
-    never leaves VMEM: at the throughput tier (B=1024, N=20, 800 points)
-    the vmapped XLA path spends ~180 us/tick writing + re-reading a 66 MB
-    K_star through HBM; the fused kernel runs the same math in 40-85 us
-    depending on ``precision`` ("high" is bf16-limb-compensated to ~2^-17,
-    see the kernel docstring; "highest" is f32-grade).
+    """Flight-batched ``build_horizon_residuals``: one posterior-mean call
+    over all ``B*N`` stage inputs, through ``backend.gp_posterior_mean``
+    (the Triton kernel on CUDA, ``predict_mean`` elsewhere). Same feature
+    assembly and the same ``/dt`` + ``residual_gain`` conversion
+    (``src/px4/mpc.py:1490-1506``).
 
     ``X_guess (B, N+1, 6)``, ``U_guess (B, N, 4)`` -> ``(B, N, 6)``.
     """
-    from ..ops.rbf_pallas import rbf_posterior_mean_pallas
+    from ..backend import gp_posterior_mean
 
     B, N = U_guess.shape[0], U_guess.shape[1]
     inputs = jnp.concatenate(
         [X_guess[:, :N, :6], U_guess[:, :, :4]], axis=2
     ).reshape(B * N, INPUT_DIM)
-    mean = rbf_posterior_mean_pallas(
-        posterior, inputs, precision=precision, interpret=interpret
-    ).reshape(B, N, OUTPUT_DIM)
-    dyn = mean / config.dt
+    mean = gp_posterior_mean(posterior, inputs, interpret=interpret)
+    dyn = mean.reshape(B, N, OUTPUT_DIM) / config.dt
     D = jnp.zeros((B, N, OUTPUT_DIM), mean.dtype)
     return D.at[:, :, 3:6].set(config.residual_gain * dyn[:, :, 3:6])
+
+
+# ---------------------------------------------------------------------------
+# Online (in-flight) learning: capture every tick, refit on a timer
+# ---------------------------------------------------------------------------
+
+
+def fit_online_gp(
+    dataset: ResidualDataset,
+    config: ResidualGPConfig = ResidualGPConfig(),
+    standardize_inputs: bool = False,
+) -> GPPosterior:
+    """The in-flight refit: the reference's fixed isotropic unscaled RBF
+    (``simple_gp.py:160``), or with ``standardize_inputs`` the
+    standardize-equivalent ARD length scales plus the masked-mean input
+    centering (``standardized_params``, ``GPPosterior.x_shift``)."""
+    if not standardize_inputs:
+        return fit_residual_gp_masked(dataset, config)
+    shift, std = masked_input_stats(dataset)
+    return fit_residual_gp_masked(
+        dataset, config,
+        params=standardized_params(dataset, config, std=std),
+        x_shift=shift,
+    )
+
+
+def online_gp_update(
+    dataset: ResidualDataset,
+    posterior: GPPosterior,
+    state_prev: jnp.ndarray,
+    control_prev: jnp.ndarray,
+    state: jnp.ndarray,
+    tick: jnp.ndarray,
+    config: ResidualGPConfig,
+    refit_every: int,
+    min_samples: int,
+    standardize_inputs: bool = False,
+):
+    """One tick of in-flight learning: push the transition
+    ``(state_prev, control_prev) -> state`` through the quality filters
+    into the ring buffer (``src/px4/mpc.py:2016-2021``), then refit under a
+    ``lax.cond`` on the last tick of every ``refit_every`` window once
+    ``min_samples`` are held (the 5 s retrain timer,
+    ``gaussian_process.py:122``). Returns ``(dataset, posterior, trained)``
+    where ``trained`` gates the residual feedforward."""
+    dataset = add_training_sample(
+        dataset, state_prev[0:6], control_prev, state[0:6], config
+    )
+    trained = dataset.count >= min_samples
+    refit = (tick % refit_every == refit_every - 1) & trained
+    posterior = jax.lax.cond(
+        refit,
+        lambda ds: fit_online_gp(ds, config, standardize_inputs),
+        lambda ds: posterior,
+        dataset,
+    )
+    return dataset, posterior, trained
 
 
 # ---------------------------------------------------------------------------

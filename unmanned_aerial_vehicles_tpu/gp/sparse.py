@@ -2,9 +2,8 @@
 
 The in-loop cost of the exact posterior mean is one ``exp`` per
 (query, training-point) pair — at the flight configuration (N=20 horizon
-stages, P=800 training points) the throughput tier spends ~60% of its tick
-evaluating 16M transcendentals per 1024-flight step (measured on v5e:
-0.265 -> 0.102 us/tick/flight with the GP ablated).
+stages, P=800 training points) that is 16M transcendentals per 1024-flight
+step of the batched sweep.
 
 ``compress_posterior`` projects the fitted mean function
 
@@ -19,9 +18,8 @@ stays exact — unlike training-time Nystrom approximations there is no
 change to the learning; only the runtime evaluation is compressed).
 
 The result is an ordinary ``GPPosterior`` with m rows: it plugs unchanged
-into ``build_horizon_residuals``, the fused tick kernels (``build_gp_rows``
-— a smaller P shrinks the in-kernel GEMMs and exp count ~P/m-fold) and the
-batched throughput sweep. The predictive VARIANCE of the compressed
+into ``build_horizon_residuals`` and the batched throughput sweep (a
+smaller P shrinks the posterior-mean work ~P/m-fold). The predictive VARIANCE of the compressed
 posterior is the anchor-expansion variance (it underestimates the true
 posterior variance away from the anchors — keep the exact posterior for
 uncertainty-critical paths like constraint tightening, or validate the gap

@@ -12,7 +12,12 @@ from .sklearn_import import (
     load_sklearn_gp_pickle,
     load_sklearn_perdim_pickle,
 )
-from .synthetic import generate_excitation_data, identify_linear_dynamics
+from .synthetic import (
+    CORPUS_ROWS,
+    generate_excitation_data,
+    identify_linear_dynamics,
+    synthetic_corpus,
+)
 from .uavlog import UavLogWriter, read_uavlog, write_uavlog
 
 __all__ = [
@@ -32,7 +37,9 @@ __all__ = [
     "load_reference_gp",
     "load_sklearn_gp_pickle",
     "load_sklearn_perdim_pickle",
+    "CORPUS_ROWS",
     "generate_excitation_data",
+    "synthetic_corpus",
     "identify_linear_dynamics",
     "UavLogWriter",
     "read_uavlog",

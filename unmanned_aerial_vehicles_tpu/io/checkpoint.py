@@ -62,7 +62,7 @@ def save_resume_state(path: str, rs) -> None:
     """Persist a ``FlightResumeState`` as an npz of its pytree leaves.
 
     The reference checkpoints GP models only and has no mid-run resume
-    (SURVEY section 5); this stores the COMPLETE fused-rollout carry so a
+    (SURVEY section 5); this stores the COMPLETE rollout scan carry so a
     flight continues bit-exactly after a crash/preemption.
     """
     import jax
@@ -93,7 +93,7 @@ def load_resume_state(path: str, like):
     like_meta = tuple(int(m) for m in like.meta)
     if saved_meta != like_meta:
         raise ValueError(
-            f"checkpoint config mismatch: saved (horizon, K, gp_capacity, "
+            f"checkpoint config mismatch: saved (horizon, gp_capacity, "
             f"variance, scaled) = {saved_meta}, current = {like_meta}"
         )
     n = int(data["__n_leaves__"])

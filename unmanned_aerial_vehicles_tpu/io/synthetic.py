@@ -6,7 +6,7 @@ training transitions when comms fail — and ``dynamics_analyzer.py`` /
 ``analyze_simple_dynamics.py`` — fit simple linear models to recorded
 transitions; SURVEY.md section 2 row 26).
 
-TPU-native: excitation rollouts are jitted scans over the true plant; the
+Excitation rollouts are jitted scans over the true plant; the
 residual-vs-double-integrator extraction is the exact inverse of the GP's
 nominal model so the generated CSVs are drop-in training data for the
 residual GP; system ID is one batched least-squares solve instead of the
@@ -72,6 +72,25 @@ def generate_excitation_data(
     )
     Y = next_states[:, 0:6] - nominal_next
     return np.asarray(X), np.asarray(Y)
+
+
+#: rows of the reference's flight-data corpus (SURVEY section 6)
+CORPUS_ROWS = 19_816
+
+
+def synthetic_corpus(
+    num_rows: int = CORPUS_ROWS,
+    seed: int = 0,
+    max_samples: int | None = None,
+):
+    """A seeded stand-in for the reference's ``gp_datasets`` corpus: one
+    excitation flight of ``num_rows`` ticks in the same 10 -> 6 schema,
+    down-sampled evenly to ``max_samples`` like ``io.load_gp_datasets``."""
+    X, Y = generate_excitation_data(seed=seed, num_steps=num_rows)
+    if max_samples is not None and X.shape[0] > max_samples:
+        idx = np.linspace(0, X.shape[0] - 1, max_samples).astype(int)
+        X, Y = X[idx], Y[idx]
+    return X, Y
 
 
 def identify_linear_dynamics(states, controls, next_states):

@@ -8,7 +8,7 @@ residuals (``main.py:212-246``). Also covers the flight node's online data
 capture (``src/px4/mpc.py:2016-2021``) and periodic retraining policy
 (``gaussian_process.py:122,360-367``).
 
-TPU-native: the timers become **one** ``lax.scan`` with modular-arithmetic
+Here the timers become **one** ``lax.scan`` with modular-arithmetic
 rate dividers; the retraining thread becomes a ``lax.cond``-gated masked GP
 refit (static shapes, one Cholesky) every ``gp_refit_every`` ticks; the GP
 posterior rides the scan carry. No executors, no threads, no topic hops —
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from typing import Callable
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 
@@ -33,14 +33,14 @@ from ..control.mpc_linear import LinearMPC
 from ..gp.residual_gp import (
     ResidualDataset,
     ResidualGPConfig,
-    add_training_sample,
     build_horizon_residuals,
     empty_dataset,
-    fit_residual_gp_masked,
+    fit_online_gp,
+    online_gp_update,
 )
 from ..models.params import RigidBodyParams
 from ..models.px4_surrogate import RateLoopParams
-from .closed_loop import FlightLoopConfig, _plant_substeps
+from .closed_loop import FlightLoopConfig, _plant_substeps, preview_reference_states
 
 
 @struct.dataclass
@@ -51,8 +51,8 @@ class OnlineGPMPCConfig:
     gp_min_samples: int = 30       # simple_gp.py:158
     mpc_every: int = 1             # solve every k-th tick (10 Hz MPC = 5)
     preview: bool = False          # per-stage horizon references
-    # opt-in standardize-equivalent ARD refits (the OnlineFusedGPConfig
-    # flag's staged twin; gp.residual_gp.standardized_params)
+    # opt-in standardize-equivalent ARD refits (as OnlineFusedGPConfig;
+    # gp.residual_gp.standardized_params)
     standardize_inputs: bool = False
 
 
@@ -83,19 +83,7 @@ def online_gp_mpc_rollout(
     accel_hi = jnp.asarray(fcfg.accel_upper, dtype)
     hover_u = jnp.zeros(4, dtype)  # zero-acceleration command = hover
 
-    def fit_scaled(ds):
-        if cfg.standardize_inputs:
-            from ..gp.residual_gp import masked_input_stats, standardized_params
-
-            shift, std = masked_input_stats(ds)
-            return fit_residual_gp_masked(
-                ds, cfg.gp,
-                params=standardized_params(ds, cfg.gp, std=std),
-                x_shift=shift,
-            )
-        return fit_residual_gp_masked(ds, cfg.gp)
-
-    posterior0 = fit_scaled(initial_dataset)
+    posterior0 = fit_online_gp(initial_dataset, cfg.gp, cfg.standardize_inputs)
 
     def step(carry, i):
         (state, mpc_carry, att_carry, dataset, posterior,
@@ -106,21 +94,13 @@ def online_gp_mpc_rollout(
         pos_ref = jnp.asarray(pos_ref, dtype)
         yaw_ref = jnp.asarray(yaw_ref, dtype)
 
-        # --- online data capture (mpc.py:2016-2021) --------------------
-        dataset = add_training_sample(
-            dataset, prev_state[0:6], prev_control, state[0:6], cfg.gp
-        )
-
-        # --- periodic GP refit (cond-gated Cholesky) -------------------
-        refit = (i % cfg.gp_refit_every == cfg.gp_refit_every - 1) & (
-            dataset.count >= cfg.gp_min_samples
-        )
-        posterior = jax.lax.cond(
-            refit, fit_scaled, lambda ds: posterior, dataset
+        # --- online data capture + periodic cond-gated refit ------------
+        dataset, posterior, trained = online_gp_update(
+            dataset, posterior, prev_state, prev_control, state, i, cfg.gp,
+            cfg.gp_refit_every, cfg.gp_min_samples, cfg.standardize_inputs,
         )
 
         # --- MPC tick (rate-divided), GP residuals gated on is_trained --
-        trained = dataset.count >= cfg.gp_min_samples
         residuals = jnp.where(
             trained,
             build_horizon_residuals(posterior, mpc_carry.X_prev,
@@ -128,16 +108,12 @@ def online_gp_mpc_rollout(
             jnp.zeros((mpc.config.horizon, 6), dtype),
         )
 
-        if cfg.preview:
-            ts = t + fcfg.control_dt * jnp.arange(
-                1, mpc.config.horizon + 2, dtype=dtype
+        ref_states = (
+            preview_reference_states(
+                reference_fn, t, mpc.config.horizon, fcfg.control_dt, dtype
             )
-            pos_refs, _ = jax.vmap(reference_fn)(ts)
-            pos_refs = jnp.asarray(pos_refs, dtype)
-            vel_refs = (pos_refs[1:] - pos_refs[:-1]) / fcfg.control_dt
-            ref_states = jnp.concatenate([pos_refs[:-1], vel_refs], axis=1)
-        else:
-            ref_states = None
+            if cfg.preview else None
+        )
 
         def do_solve(args):
             mc, st = args

@@ -5,7 +5,7 @@ The reference evaluates each controller on ONE nominal plant per campaign
 run (PX4 SITL with fixed parameters; the standalone harness's fixed-seed
 comparison at ``/root/reference/quadrotor_gp_mpc/quadrotor_gp_mpc/main.py:417-541``).
 It has no dispersion analysis — robustness is argued from a handful of bags.
-On TPU a population IS one program: ``vmap`` over a pytree batch of
+Here a population IS one program: ``vmap`` over a pytree batch of
 ``RigidBodyParams`` / ``RateLoopParams`` (mass, drag, rate-loop lags,
 hover-thrust calibration), steady wind vectors (``RigidBodyParams.wind``)
 and jittered initial states turns a single flight rollout into an N-flight
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 from typing import Callable
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 
@@ -149,12 +149,9 @@ def monte_carlo_flights(
     """Generic engine: ``flight_fn(body_i, rate_loop_i, x0_i) -> state (T,12)``
     is vmapped over sampled conditions; returns ``robustness_stats``.
 
-    Works on every execution tier: the fused Pallas kernels take the plant
-    scalars (mass/drag/rate-lags/hover-thrust/wind) as TRACED row operands,
-    so ``vmap`` over the dispersion batch adds a kernel grid axis instead of
-    forcing per-sample recompiles — ``loop_cfg.use_fused_tick=True`` runs
-    the whole population study on the latency path. Set
-    ``loop_cfg.fallback_error_m`` (e.g. 5.0) to bound worst-case excursions
+    The plant scalars (mass/drag/rate-lags/hover-thrust/wind) are traced,
+    so ``vmap`` over the dispersion batch compiles one program for the
+    whole population. Set ``loop_cfg.fallback_error_m (e.g. 5.0) to bound worst-case excursions
     with the reference's divergence-triggered hover fallback
     (``src/px4/mpc.py:2276-2282``)."""
     key = jax.random.PRNGKey(mc.seed)
@@ -204,9 +201,7 @@ def monte_carlo_mpc(
     rate_loop: RateLoopParams = RateLoopParams(),
     loop_cfg: FlightLoopConfig = FlightLoopConfig(),
 ) -> dict:
-    """(GP-)MPC population study — any execution tier (the fused kernels
-    consume traced plant rows, so the XLA, pallas-plant and fused-tick
-    paths all vmap over the dispersion batch)."""
+    """(GP-)MPC population study."""
 
     def flight(b, r, x0):
         return mpc_flight_rollout(
@@ -252,7 +247,7 @@ def monte_carlo_mpc12(
 
     ``use_fallback`` arms ``make_attitude_recovery_fallback`` (the
     reference's emergency-hover semantics) per tick, clamped to the
-    vehicle's physical thrust ceiling. Measured finding (v5e, 64-member
+    vehicle's physical thrust ceiling. Measured finding (64-member
     mass dispersion): the nominal-model torque MPC has an ASYMMETRIC
     robustness cliff — members whose hover demand reaches the engine's
     1.2x-nominal thrust bound (``mpc_FULL.py`` parity constant; ~+17 %

@@ -1,12 +1,10 @@
-"""Multi-tick (fused-tier) closed loops for the 12-state SQP family.
+"""Multi-tick closed loops for the 12-state SQP and iLQR families.
 
-Round-3 VERDICT missing #2: the 6-state flagship got three rounds of
-multi-tick work (6.5 us/tick) while the 12-state controllers the reference
-also ships (``/root/reference/src/px4/mpc_FULL.py:86-549``,
-``mpc_direct_rates.py:76-922``) ran as per-tick staged XLA at 228-280 us.
-This module gives them the same treatment, with the same accepted
-approximation as the in-kernel EKF: **relinearise once per dispatch**
-instead of once per tick.
+The 12-state controllers the reference ships
+(``/root/reference/src/px4/mpc_FULL.py:86-549``,
+``mpc_direct_rates.py:76-922``) relinearise every tick in their per-tick
+form. These loops make one accepted approximation: **relinearise once per
+dispatch** of K ticks instead of once per tick.
 
 Why that restructuring is the whole win: the staged SQP tick spends its
 time on per-tick ``jacfwd`` (N stages), the condensation scan, and a
@@ -27,7 +25,7 @@ A structural bonus the per-tick engine cannot have: the equilibration
 scalars (d, e) are fixed across the dispatch, so ADMM duals warm-start
 ACROSS TICKS in the same scaled space — the iteration count drops from 80
 (cold per-tick) to ~30 with no RMS change (the linear-MPC warm-start
-result repeats; see ``tools/bench_controllers.py`` rows).
+result repeats).
 
 Accuracy is bounded by test against the per-tick staged engine
 (``tests/test_rigid_multitick.py``): circle-task RMS parity to <2e-3 m at
@@ -126,7 +124,6 @@ def sqp_multitick_rollout(
     residuals: jnp.ndarray | None = None,
     u_init: jnp.ndarray | None = None,
     obstacles: jnp.ndarray | None = None,
-    plan_roll: str = "nonlinear",
     plan_roll_fn: Callable | None = None,
     fallback_fn: Callable | None = None,
 ):
@@ -146,25 +143,10 @@ def sqp_multitick_rollout(
     active between re-anchors. Detour parity vs the per-tick engine is
     pinned in ``tests/test_rigid_multitick.py::test_multitick_obstacle_detour``.
 
-    ``plan_roll`` picks how the warm plan (the next dispatch's
-    linearisation anchor) is re-anchored after the K ticks:
-
-    * ``"nonlinear"`` (default): ``lax.scan`` of ``mpc.step_fn`` from the
-      final state — the SQP semantics. NOTE measured cost: for an RK4
-      ``step_fn`` this sequential N-step scan is ~0.9 ms/dispatch on v5e
-      (it dwarfs the ~60 us of linalg prep); latency-sensitive callers
-      with the rigid-body plant should pass ``plan_roll_fn`` backed by
-      ``ops.rigid_plant_pallas.rigid_body_rollout_fused`` (~18 us, same
-      math to 7e-7).
-    * ``"linear"``: extrapolate with the dispatch's own LTV prediction
-      ``Sx x + Su U + Sc`` — two matvecs, bounded by construction.
-      Measured trade on the LTV obstacle-circle task: ~2x faster
-      dispatches but a visibly staler anchor (closed-loop RMS 0.30 vs
-      0.19 at K=4); right when the dispatch rate is high relative to the
-      dynamics.
-
-    ``plan_roll_fn(x_fin (nx,), U_fin (N, nu), residuals (N, nx)) ->
-    X_tail (N, nx)`` overrides both modes with a custom roll.
+    After the K ticks the warm plan (the next dispatch's linearisation
+    anchor) is re-anchored by a ``lax.scan`` of ``mpc.step_fn`` from the
+    final state — the SQP semantics. ``plan_roll_fn(x_fin (nx,), U_fin
+    (N, nu), residuals (N, nx)) -> X_tail (N, nx)`` replaces that roll.
 
     ``fallback_fn(x, u0) -> (u_applied, bad)``: optional per-tick
     emergency guard (``make_attitude_recovery_fallback``) — reference
@@ -172,8 +154,6 @@ def sqp_multitick_rollout(
     also reset (the infeasible rows' dual windup otherwise poisons the
     recovery).
     """
-    if plan_roll not in ("nonlinear", "linear"):
-        raise ValueError(f"unknown plan_roll mode: {plan_roll!r}")
     cfg = mpc.config
     N, nx, nu = cfg.horizon, mpc.nx, mpc.nu
     n_obs = getattr(mpc, "num_obstacles", 0)
@@ -248,7 +228,7 @@ def sqp_multitick_rollout(
         M = Hs + rho * mm(Gs.T, Gs)
         M_chol = jnp.linalg.cholesky(M)
         # explicit M^{-1} once per dispatch: XLA triangular solves are
-        # sequential/blocked (slow on TPU), so solve for the (NU, NU)
+        # sequential/blocked, so solve for the (NU, NU)
         # inverse here and make every per-tick solve a plain matvec —
         # the per-tick cho_solve was the dominant per-tick cost
         Minv_s = jax.scipy.linalg.cho_solve(
@@ -320,10 +300,6 @@ def sqp_multitick_rollout(
         # re-anchor the plan for the next dispatch's linearisation
         if plan_roll_fn is not None:
             X_tail = plan_roll_fn(x_fin, U_fin, residuals)
-        elif plan_roll == "linear":
-            X_tail = (
-                mm(Sx, x_fin) + mm(Su, U_fin.reshape(-1)) + Sc
-            ).reshape(N, nx)
         else:
             def roll_plan(xc, inp):
                 u, dres = inp
@@ -354,258 +330,6 @@ def sqp_multitick_rollout(
     return outs
 
 
-def direct_rate_multitick_fused(
-    mpc: SQPMPC,
-    cost: QuadCost,
-    reference_fn: Callable,      # tick index array (K,) -> (K, N, nx) stage refs
-    x0: jnp.ndarray,
-    num_steps: int,
-    ticks_per_dispatch: int = 8,
-    admm_iterations: int = 30,
-    residuals: jnp.ndarray | None = None,
-    u_init: jnp.ndarray | None = None,
-    loop_precision: str = "highest",
-    dt: float = 0.02,
-    substeps: int = 1,
-    gravity: float = 9.81,
-    taus: tuple = (0.05, 0.05, 0.08),
-    interpret: bool | None = None,
-    plan_roll: str = "nonlinear",
-    plant: str = "direct_rate",
-    body=None,
-):
-    """``sqp_multitick_rollout`` for the direct-rate engine with the PER-TICK
-    chain in one Pallas kernel (VERDICT round-4 #5).
-
-    Same dispatch split as the staged tier: the per-dispatch relinearisation
-    (vmapped ``jacfwd`` + condensation + Ruiz + Cholesky + operator
-    composition) stays in XLA — it is GEMM-shaped and runs once per K
-    ticks — while the serial per-tick chain (warm-start shift, condensed
-    gradient/bounds, composite ADMM, plant) runs in
-    ``ops.rigid_tick_pallas.direct_rate_multitick_kernel``. Algebra is
-    identical (same shift, same scaled-space ADMM, same composite
-    operator); the only representation change is that slack/dual live in
-    the dispatch's equilibrated space across ticks, with the per-lane
-    shift correction ``e / blockroll(e)`` applied after the lane rolls.
-    Parity vs the staged tier is pinned in
-    ``tests/test_rigid_multitick.py::test_direct_rate_fused_matches_staged``.
-
-    The plant is the direct-rate model itself with zero residual
-    (``control.mpc_rigid.direct_rate_step`` — the CLI tier's plant), baked
-    into the kernel; ``residuals`` only enters the controller's
-    linearisation, exactly as in the staged tier flown on this plant.
-
-    ``plant="rigid"`` (see ``rigid_multitick_fused``) swaps the in-kernel
-    plant for RK4 substeps of the torque-input rigid body (``body``'s
-    ``RigidBodyParams``, shared scalar math
-    ``ops.rigid_plant_pallas.make_plant_math``) — the torque-SQP family
-    (``RigidBodyMPC``, reference ``mpc_FULL.py:86-549``) gets the same
-    whole-tick-in-kernel tier.
-
-    Reference engine being accelerated: the per-tick CasADi/Ipopt solve of
-    ``/root/reference/src/px4/mpc_direct_rates.py:76-922``.
-    """
-    from ..ops.rigid_tick_pallas import (
-        _pad_lane,
-        direct_rate_multitick_kernel,
-    )
-
-    cfg = mpc.config
-    N, nx, nu = cfg.horizon, mpc.nx, mpc.nu
-    if mpc.dtype != jnp.float32:
-        raise ValueError("the fused direct-rate tier is f32-only "
-                         f"(engine dtype {mpc.dtype})")
-    if getattr(mpc, "num_obstacles", 0):
-        raise ValueError("the fused direct-rate tier has no obstacle rows; "
-                         "use sqp_multitick_rollout")
-    if plan_roll not in ("nonlinear", "linear"):
-        raise ValueError(f"unknown plan_roll mode: {plan_roll!r}")
-    if plant == "rigid":
-        if body is None:
-            raise ValueError('plant="rigid" requires body=RigidBodyParams')
-        rigid_consts = (
-            float(body.mass), float(body.k_drag_linear),
-            float(body.k_drag_angular),
-            float(body.inertia_xx), float(body.inertia_yy),
-            float(body.inertia_zz),
-            *(float(v) for v in body.wind),
-        )
-        gravity = float(body.gravity)
-    elif plant == "direct_rate":
-        rigid_consts = None
-    else:
-        raise ValueError(f"unknown in-kernel plant: {plant!r}")
-    K = ticks_per_dispatch
-    if num_steps % K:
-        raise ValueError(f"num_steps={num_steps} not a multiple of K={K}")
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    dtype = jnp.float32
-    prec = jax.lax.Precision.HIGHEST
-    mm = lambda a, b: jnp.matmul(a, b, precision=prec)
-
-    Nnu, Nnx = N * nu, N * nx
-    m = Nnu + Nnx
-    nu_pad, nx_pad, m_pad = _pad_lane(Nnu), _pad_lane(Nnx), _pad_lane(m)
-
-    residuals = (jnp.zeros((N, nx), dtype) if residuals is None
-                 else residuals.astype(dtype))
-    qbar = jnp.concatenate(
-        [jnp.tile(cost.q_stage, N - 1), cost.q_terminal]
-    ).astype(dtype)
-    rbar = jnp.tile(cost.r_control, N).astype(dtype)
-    u_ref_flat = jnp.tile(cost.u_ref.astype(dtype), N)
-    f0_row = jnp.zeros((1, nu_pad), dtype).at[0, :Nnu].set(
-        -rbar * u_ref_flat
-    )
-    lo_row = jnp.zeros((1, m_pad), dtype).at[0, :m].set(
-        jnp.concatenate([mpc._u_lo, mpc._x_lo])
-    )
-    hi_row = jnp.zeros((1, m_pad), dtype).at[0, :m].set(
-        jnp.concatenate([mpc._u_hi, mpc._x_hi])
-    )
-
-    step_jac = jax.vmap(
-        jax.jacfwd(mpc.step_fn, argnums=(0, 1)), in_axes=(0, 0, 0)
-    )
-    rho = cfg.admm_rho
-
-    def roll_block(vec, width):
-        mat = vec.reshape(N, width)
-        return jnp.concatenate([mat[1:], mat[-1:]], 0).reshape(-1)
-
-    def one_dispatch(carry: MultiTickCarry, tick0):
-        # ---- per-dispatch (XLA): relinearise about the warm plan ---------
-        X_bar = carry.X_plan.at[0].set(carry.state)
-        U_bar = carry.U_plan
-        A, B = step_jac(X_bar[:-1], U_bar, residuals)
-        X_next = jax.vmap(mpc.step_fn)(X_bar[:-1], U_bar, residuals)
-        c = X_next - jnp.einsum("kij,kj->ki", A, X_bar[:-1]) - jnp.einsum(
-            "kij,kj->ki", B, U_bar
-        )
-        Sx, Su, Sc = condense_ltv_doubling(A, B, c)
-        SuT_q = Su.T * qbar[None, :]                    # (NU, N*nx)
-        H = mm(SuT_q, Su) + jnp.diag(rbar)
-        G = jnp.concatenate([jnp.eye(Nnu, dtype=dtype), Su], axis=0)
-        d = 1.0 / jnp.sqrt(jnp.diagonal(H) + 1e-10)
-        Hs = H * d[:, None] * d[None, :]
-        Gd = G * d[None, :]
-        e = 1.0 / jnp.sqrt(jnp.sum(Gd**2, axis=1) + 1e-10)
-        Gs = Gd * e[:, None]
-        M = Hs + rho * mm(Gs.T, Gs)
-        M_chol = jnp.linalg.cholesky(M)
-        # explicit inverse + GEMM: one (NU,)-rhs triangular solve per
-        # dispatch instead of an (m,)-rhs one (see the staged path)
-        Minv_s = jax.scipy.linalg.cho_solve(
-            (M_chol, True), jnp.eye(Hs.shape[0], dtype=dtype))
-        GMinvT_s = mm(Minv_s, Gs.T)
-        P1 = mm(Gs, GMinvT_s)
-
-        # kernel operand layouts (zero pads throughout)
-        sxct = jnp.zeros((16, nx_pad), dtype)
-        sxct = sxct.at[0:nx, :Nnx].set(Sx.T).at[12, :Nnx].set(Sc)
-        sutqt = jnp.zeros((nx_pad, nu_pad), dtype).at[:Nnx, :Nnu].set(SuT_q.T)
-        gml = jnp.zeros((nu_pad, m_pad), dtype).at[:Nnu, :m].set(GMinvT_s)
-        p1 = jnp.zeros((m_pad, m_pad), dtype).at[:m, :m].set(P1)
-        d_row = jnp.zeros((1, nu_pad), dtype).at[0, :Nnu].set(d)
-        e_row = jnp.zeros((1, m_pad), dtype).at[0, :m].set(e)
-        ie_row = jnp.zeros((1, m_pad), dtype).at[0, :m].set(1.0 / e)
-        e_shift = jnp.concatenate(
-            [roll_block(e[:Nnu], nu), roll_block(e[Nnu:], nx)]
-        )
-        ce_row = jnp.zeros((1, m_pad), dtype).at[0, :m].set(e / e_shift)
-        ice_row = jnp.zeros((1, m_pad), dtype).at[0, :m].set(e_shift / e)
-
-        refs_all = reference_fn(tick0 + jnp.arange(K)).astype(dtype)
-        refs = jnp.zeros((K, nx_pad), dtype).at[:, :Nnx].set(
-            refs_all.reshape(K, Nnx)
-        )
-        x_row = jnp.zeros((1, 16), dtype).at[0, 0:nx].set(
-            carry.state).at[0, 12].set(1.0)
-        z0 = jnp.zeros((1, m_pad), dtype).at[0, :m].set(carry.z * e)
-        y0 = jnp.zeros((1, m_pad), dtype).at[0, :m].set(carry.y / e)
-
-        out, x_fin_row, z_fin, y_fin = direct_rate_multitick_kernel(
-            x_row, z0, y0, refs,
-            sxct, sutqt, f0_row, gml, p1,
-            d_row, e_row, ie_row, ce_row, ice_row, lo_row, hi_row,
-            k_ticks=K, n=N, nu=nu, nx=nx,
-            iterations=admm_iterations,
-            over_relax=float(cfg.admm_over_relax), rho=float(rho),
-            dt=dt, substeps=substeps, gravity=gravity, taus=taus,
-            loop_precision=loop_precision, interpret=interpret,
-            plant=plant, rigid_consts=rigid_consts,
-        )
-        z_uneq = z_fin[0, :m] * ie_row[0, :m]
-        y_uneq = y_fin[0, :m] * e
-        x_fin = x_fin_row[0, 0:nx]
-        U_fin = z_uneq[:Nnu].reshape(N, nu)
-
-        # re-anchor the plan (same modes as the staged path)
-        if plan_roll == "linear":
-            X_tail = (
-                mm(Sx, x_fin) + mm(Su, U_fin.reshape(-1)) + Sc
-            ).reshape(N, nx)
-        else:
-            def roll_plan(xc, inp):
-                u, dres = inp
-                xn = mpc.step_fn(xc, u, dres)
-                return xn, xn
-
-            _, X_tail = jax.lax.scan(roll_plan, x_fin, (U_fin, residuals))
-        X_plan = jnp.concatenate([x_fin[None, :], X_tail], axis=0)
-        outs = {"state": out[:, 0:nx], "u": out[:, 12:12 + nu]}
-        return MultiTickCarry(x_fin, X_plan, U_fin, z_uneq, y_uneq), outs
-
-    carry0 = MultiTickCarry(
-        state=x0.astype(dtype),
-        X_plan=jnp.tile(x0[None, :].astype(dtype), (N + 1, 1)),
-        U_plan=jnp.tile(
-            (cost.u_ref if u_init is None else u_init)[None, :].astype(dtype),
-            (N, 1),
-        ),
-        z=jnp.zeros(m, dtype),
-        y=jnp.zeros(m, dtype),
-    )
-    carry_fin, outs = jax.lax.scan(
-        one_dispatch, carry0, jnp.arange(0, num_steps, K)
-    )
-    outs = jax.tree_util.tree_map(
-        lambda a: a.reshape((num_steps,) + a.shape[2:]), outs
-    )
-    outs["carry"] = carry_fin
-    return outs
-
-
-def rigid_multitick_fused(
-    mpc: SQPMPC,
-    cost: QuadCost,
-    reference_fn: Callable,
-    x0: jnp.ndarray,
-    num_steps: int,
-    body=None,
-    **kwargs,
-):
-    """Whole-tick-in-kernel multitick tier for the TORQUE-input SQP family
-    (``control.mpc_rigid.RigidBodyMPC`` — reference ``mpc_FULL.py:86-549``):
-    ``direct_rate_multitick_fused`` with the in-kernel plant swapped for
-    RK4 substeps of the rigid body (``body``'s ``RigidBodyParams``, scalar
-    math shared with ``ops.rigid_plant_pallas``). Same dispatch split,
-    same equilibrated-space slack/dual carry; parity vs the staged
-    ``sqp_multitick_rollout`` is pinned in ``tests/test_rigid_multitick.py``.
-    """
-    if body is None:
-        from ..models import X500_PARAMS
-
-        body = X500_PARAMS
-    kwargs.pop("plant", None)
-    return direct_rate_multitick_fused(
-        mpc, cost, reference_fn, x0, num_steps,
-        plant="rigid", body=body, dt=kwargs.pop("dt", 0.02),
-        gravity=float(body.gravity), **kwargs,
-    )
-
-
 def ilqr_multitick_rollout(
     eng: ILQRRigidBodyMPC,
     position_ref_fn: Callable,   # tick index array (K,) -> (K, 3) positions
@@ -618,7 +342,7 @@ def ilqr_multitick_rollout(
     solve's own time-varying LQR policy applied per tick.
 
     The iLQR tick is serial-chain-bound (rollout + backward + forward
-    Riccati scans per iteration — ~1 ms/tick staged), but its Riccati
+    Riccati scans per iteration), but its Riccati
     backward pass already produces exactly what a cheaper tick needs: the
     feedback gains ``K_k`` of the final subproblem. Per dispatch this runs
     the full fixed-iteration solve from the current state; per tick it
@@ -627,29 +351,22 @@ def ilqr_multitick_rollout(
     (nu, nx) matvec instead of ten serial scans. Deviations from the plan
     (plant-vs-prediction mismatch, the moving reference) are absorbed by
     the feedback term until the next re-solve — the same
-    per-dispatch-refresh approximation as the in-kernel EKF and the SQP
-    multitick tier, bounded the same way (``tests/test_rigid_multitick.py``).
+    per-dispatch-refresh approximation as the SQP multitick loop, bounded
+    the same way (``tests/test_rigid_multitick.py``).
     Measured circle-task RMS vs the per-tick staged engine (0.549 m):
     K=1 0.552, K=2 0.559, K=4 0.576, K=8 0.602 — the policy degrades
     gracefully but the Euler-prediction-vs-RK4-plant mismatch accumulates,
     so the default is K=2 (<1.1 cm gap, half the solve cost).
 
     With ``ILQRRigidBodyMPC(integrator="rk4")`` that mismatch is GONE —
-    the engine's internal model is the true plant step and its forward
-    rollouts run in the fused plant kernel — so the plan is exact and the
-    per-tick feedback only absorbs the moving reference. Measured (v5e,
-    iterations=1): K=2 76 µs/tick at RMS 0.5204 (BELOW the staged Euler
-    engine's 0.5668), K=4 41 µs at 0.5395, K=8 23 µs at 0.5703
-    (``ilqr12_multitick_rk4_*`` rows in
-    ``artifacts/controller_latency.json``).
+    the engine's internal model is the true plant step — so the plan is
+    exact and the per-tick feedback only absorbs the moving reference.
 
     The ADMM/SQP warm-start result repeats here at dispatch granularity:
     with the shifted ``U_prev`` carried across dispatches, closed-loop RMS
-    is ITERATION-INVARIANT down to ``iterations=1`` (measured on v5e at
-    K=2: rms 1.2364/1.2364/1.2363 m for 3/2/1 iterations at 516/391/258
-    us/tick) — build the engine with ``ILQRRigidBodyMPC(iterations=1)``
-    for the sub-0.3 ms tier; the engine default stays 3 for cold-transient
-    margin.
+    is iteration-invariant down to ``iterations=1`` (K=2: rms
+    1.2364/1.2364/1.2363 m for 3/2/1 iterations); the engine default stays
+    3 for cold-transient margin.
 
     Reference engine being accelerated: the per-tick Ipopt solves of
     ``/root/reference/src/px4/mpc_FULL.py:438-549`` at a <20 ms budget.
@@ -676,7 +393,6 @@ def ilqr_multitick_rollout(
             iterations=eng.iterations, reg=eng.reg,
             u_lower=eng.u_lower, u_upper=eng.u_upper,
             parallel=eng.parallel,
-            rollout_fn=getattr(eng, "rollout_fn", None),
         )
 
         def one_tick(xc, k):

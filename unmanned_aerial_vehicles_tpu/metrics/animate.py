@@ -3,7 +3,7 @@
 The live-visualization role of the reference
 (``/root/reference/quadrotor_gp_mpc/quadrotor_gp_mpc/results_visualizer.py:17-30``
 — a matplotlib window redrawn per control step while the sim runs — and the
-animated demo window of ``demo_system.py``). The TPU rebuild runs whole
+animated demo window of ``demo_system.py``). This rebuild runs whole
 flights as one fused ``lax.scan``, so there is no per-tick Python hook to
 draw from; the streaming counterpart is an ANIMATED REPLAY of the rollout's
 stacked outputs: the same panels the reference draws live (3D-ish trajectory

@@ -6,6 +6,7 @@ from .double_integrator import (
 from .rigid_body import (
     rigid_body_derivative,
     rigid_body_rk4_step,
+    rigid_body_rk4_substeps,
     rigid_body_euler_step,
 )
 from .px4_surrogate import (
@@ -23,6 +24,7 @@ __all__ = [
     "double_integrator_step",
     "rigid_body_derivative",
     "rigid_body_rk4_step",
+    "rigid_body_rk4_substeps",
     "rigid_body_euler_step",
     "PID_CAMPAIGN_RATE_LOOP",
     "RateLoopParams",

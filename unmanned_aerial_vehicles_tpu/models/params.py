@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from flax import struct
+from .. import struct
 import jax.numpy as jnp
 
 

@@ -33,7 +33,7 @@ Control: ``[thrust_normalized, p_cmd, q_cmd, r_cmd]``.
 
 from __future__ import annotations
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 
@@ -135,137 +135,3 @@ def px4_rate_tracking_step(
     k3 = f(state + 0.5 * dt * k2)
     k4 = f(state + dt * k3)
     return state + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
-
-
-def derivative_jacobian(
-    state: jnp.ndarray,
-    control: jnp.ndarray,
-    body: RigidBodyParams,
-    rates: RateLoopParams,
-) -> jnp.ndarray:
-    """Hand-derived ``d(_derivative)/d(state)`` — the continuous-time process
-    Jacobian of the surrogate, in closed form (no autodiff).
-
-    Exists so the EKF's transition Jacobian can be evaluated PER TICK inside
-    the fused Pallas kernel (``ops.tick_pallas``): the in-kernel filter
-    previously froze a ``jacfwd`` F for a whole dispatch (the one
-    approximation vs the staged ``estimation.ekf_step``); transcribing this
-    closed form removes it. Structure (rows = derivative components):
-
-    * position rows: ``d(pos_dot)/d(vel) = I``;
-    * acceleration rows: drag Jacobian ``-(k/m)(speed I + av av'/speed)``
-      wrt velocity (zero at zero airspeed, matching the gradient-safe
-      guard), thrust-direction derivatives wrt the Euler angles;
-    * attitude rows: ``dW/d(phi, theta) omega`` and ``W`` wrt rates;
-    * rate rows: ``-diag(1/tau)`` (the rate-lag block — constant).
-
-    Verified against ``jax.jacfwd`` of ``_derivative`` to f64 precision in
-    ``tests/test_dynamics.py``.
-    """
-    dtype = state.dtype
-    vel = state[3:6]
-    phi, theta, psi = state[6], state[7], state[8]
-    p, q, r = state[9], state[10], state[11]
-    thrust_norm = control[0]
-
-    cphi, sphi = jnp.cos(phi), jnp.sin(phi)
-    cth, sth = jnp.cos(theta), jnp.sin(theta)
-    cpsi, spsi = jnp.cos(psi), jnp.sin(psi)
-    cth_safe = jnp.where(jnp.abs(cth) < 1e-6,
-                         jnp.where(cth < 0, -1e-6, 1e-6), cth)
-    tth = sth / cth_safe
-    sec = 1.0 / cth_safe
-    sec2 = sec * sec
-
-    J = jnp.zeros((12, 12), dtype)
-    # position rows
-    J = J.at[0:3, 3:6].set(jnp.eye(3, dtype=dtype))
-
-    # acceleration rows: drag wrt velocity
-    av = vel - jnp.asarray(body.wind, dtype)
-    sq = jnp.sum(av**2)
-    speed = jnp.where(sq > 0.0, jnp.sqrt(jnp.where(sq > 0.0, sq, 1.0)), 0.0)
-    kd = body.k_drag_linear / body.mass
-    outer = jnp.where(
-        sq > 0.0, jnp.outer(av, av) / jnp.where(sq > 0.0, speed, 1.0), 0.0
-    )
-    J = J.at[3:6, 3:6].set(-kd * (speed * jnp.eye(3, dtype=dtype) + outer))
-
-    # acceleration rows: thrust direction wrt Euler angles
-    a_thrust = thrust_norm * body.gravity / rates.hover_thrust_norm
-    dt_dphi = jnp.stack([
-        sphi * sth * cpsi - cphi * spsi,
-        sphi * sth * spsi + cphi * cpsi,
-        -sphi * cth,
-    ])
-    dt_dtheta = jnp.stack([
-        -cphi * cth * cpsi,
-        -cphi * cth * spsi,
-        -cphi * sth,
-    ])
-    dt_dpsi = jnp.stack([
-        cphi * sth * spsi - sphi * cpsi,
-        -(cphi * sth * cpsi + sphi * spsi),
-        jnp.zeros((), dtype),
-    ])
-    J = J.at[3:6, 6].set(a_thrust * dt_dphi)
-    J = J.at[3:6, 7].set(a_thrust * dt_dtheta)
-    J = J.at[3:6, 8].set(a_thrust * dt_dpsi)
-
-    # attitude rows: W(phi, theta) omega
-    J = J.at[6, 6].set(q * cphi * tth - r * sphi * tth)
-    J = J.at[6, 7].set((q * sphi + r * cphi) * sec2)
-    J = J.at[6, 9:12].set(jnp.stack([jnp.ones((), dtype), sphi * tth,
-                                     cphi * tth]))
-    J = J.at[7, 6].set(-q * sphi - r * cphi)
-    J = J.at[7, 10].set(cphi)
-    J = J.at[7, 11].set(-sphi)
-    J = J.at[8, 6].set((q * cphi - r * sphi) * sec)
-    J = J.at[8, 7].set((q * sphi + r * cphi) * sth * sec2)
-    J = J.at[8, 10].set(sphi * sec)
-    J = J.at[8, 11].set(cphi * sec)
-
-    # rate rows: first-order lag
-    taus = jnp.asarray(rates.taus, dtype)
-    J = J.at[9:12, 9:12].set(jnp.diag(-1.0 / taus))
-    return J
-
-
-def px4_step_jacobian(
-    state: jnp.ndarray,
-    control: jnp.ndarray,
-    body: RigidBodyParams,
-    rates: RateLoopParams,
-    dt: float,
-) -> jnp.ndarray:
-    """Analytic transition Jacobian of ``px4_rate_tracking_step`` — the
-    exact chain rule through the RK4 stages using ``derivative_jacobian``:
-
-        K1 = J(x),               K2 = J(x + h/2 k1)(I + h/2 K1),
-        K3 = J(x + h/2 k2)(I + h/2 K2),  K4 = J(x + h k3)(I + h K3),
-        F  = I + h/6 (K1 + 2 K2 + 2 K3 + K4).
-
-    Mathematically identical to ``jax.jacfwd(px4_rate_tracking_step)``
-    (same chain rule, evaluated in closed form); agreement is pinned in
-    ``tests/test_dynamics.py``.
-    """
-    f = lambda x: _derivative(x, control, body, rates)
-    Jat = lambda x: derivative_jacobian(x, control, body, rates)
-    eye = jnp.eye(12, dtype=state.dtype)
-    h = dt
-    # HIGHEST: the chain-rule products otherwise run bf16 passes on TPU
-    # (measured 1.5e-4 F error vs jacfwd); F feeds EKF covariance updates
-    mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
-
-    k1 = f(state)
-    x2 = state + 0.5 * h * k1
-    k2 = f(x2)
-    x3 = state + 0.5 * h * k2
-    k3 = f(x3)
-    x4 = state + h * k3
-
-    K1 = Jat(state)
-    K2 = mm(Jat(x2), eye + 0.5 * h * K1)
-    K3 = mm(Jat(x3), eye + 0.5 * h * K2)
-    K4 = mm(Jat(x4), eye + h * K3)
-    return eye + (h / 6.0) * (K1 + 2.0 * K2 + 2.0 * K3 + K4)

@@ -100,6 +100,20 @@ def rigid_body_rk4_step(
     return state + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
+def rigid_body_rk4_substeps(
+    state: jnp.ndarray,
+    control: jnp.ndarray,
+    params: RigidBodyParams,
+    dt: float,
+    substeps: int = 1,
+    residual: jnp.ndarray | None = None,
+) -> jnp.ndarray:
+    """``substeps`` RK4 steps of ``dt / substeps`` under one held control."""
+    for _ in range(substeps):
+        state = rigid_body_rk4_step(state, control, params, dt / substeps, residual)
+    return state
+
+
 def rigid_body_euler_step(
     state: jnp.ndarray,
     control: jnp.ndarray,

@@ -4,7 +4,7 @@
 // The reference records runs through a rosbag daemon (explicit topic list,
 // /root/reference/run_mpc_velocity_control.sh:120-150; 96,484 msgs / 132 s
 // in the flagship bag) and reads them back with sqlite queries
-// (src/px4/enhanced_plot_mpc_bag.py:446-530). The TPU framework's fused
+// (src/px4/enhanced_plot_mpc_bag.py:446-530). This framework's
 // rollouts usually return whole flights as stacked arrays (saved as npz),
 // but ONLINE use — long-duration telemetry from a host driver loop, or
 // multi-process sweep workers appending as they fly — needs a streaming,

@@ -1,7 +1,7 @@
 """Parallel-in-horizon LQR: Riccati via ``jax.lax.associative_scan``.
 
 ``ops.riccati.lqr_tracking_solve`` is one backward + one forward
-``lax.scan`` — O(N) sequential depth, which on a TPU leaves the MXU idle
+``lax.scan`` — O(N) sequential depth, which leaves the accelerator idle
 between tiny dependent steps once horizons grow (long-horizon planning,
 N in the hundreds). This module computes the SAME solution with O(log N)
 depth by temporal parallelization (Sarkka & Garcia-Fernandez,
@@ -20,16 +20,14 @@ Semantics and signature match ``lqr_tracking_solve`` exactly (same costs,
 same references, same feedback/feedforward outputs); parity is asserted to
 1e-8 in ``tests/test_riccati.py``.
 
-WHEN TO USE (measured, v5e-1, nx=12/nu=4, slope-timed): the sequential
-solver wins at every horizon tested — serial/parallel us per solve:
-N=15 129/282, N=30 278/471, N=60 546/957, N=120 1088/1696, N=240
-2145/3045. At this state dimension each sequential Riccati step is a
-handful of (12,12) ops, so cheap that the associative combine's 5-tuple
+WHEN TO USE (nx=12/nu=4): at this state dimension each sequential Riccati
+step is a handful of (12,12) ops, so cheap that the associative combine's 5-tuple
 of (nx,nx) matmuls (~4x the per-element work) outweighs the O(log N)
-depth saving even at N=240. The crossover needs larger nx (combine cost
+depth saving at the horizons the MPCs here use (not measured on the GPU;
+N=15..240 is the range to time). The crossover needs larger nx (combine cost
 grows like the step cost) or horizons beyond any MPC here — which is why
 ``ilqr_solve(parallel=False)`` stays the default and the latency fix for
-iLQR is the policy-reuse multitick tier (``loop.rigid_loop``), not this
+iLQR is the policy-reuse multitick loop (``loop.rigid_loop``), not this
 solver.
 """
 

@@ -4,9 +4,10 @@ The reference solves its linear MPC
 (``/root/reference/src/px4/mpc.py:1338-1461``) as a sparse NLP through
 CasADi/Ipopt: decision variables = all states and controls, equality
 constraints = dynamics, box bounds on everything, an interior-point solve
-with data-dependent iteration counts — none of which maps to a TPU.
+with data-dependent iteration counts — none of which maps to an
+accelerator.
 
-TPU-native formulation: because the dynamics are **linear**, the states are
+Accelerator formulation: because the dynamics are **linear**, the states are
 eliminated (*condensed*) so the QP lives in control-space only,
 
     min_U  1/2 U' H U + f' U      s.t.  l <= G U <= u,
@@ -15,7 +16,7 @@ with ``G = [I; Su]`` stacking the control box and the state box (mapped
 through the prediction matrix ``Su``). For a fixed horizon every matrix here
 is a **compile-time constant** — ``H``, ``G`` and the ADMM system inverse are
 baked into the XLA program; the per-tick work is a handful of (256x128)-class
-matmuls on the MXU, with *fixed* iteration counts and zero branching.
+matmuls, with *fixed* iteration counts and zero branching.
 
 Solver: over-relaxed ADMM (splitting ``z = G U``), the classic OSQP-style
 iteration specialised to a constant system matrix:
@@ -88,14 +89,14 @@ def admm_box_qp(
     l <= GU <= u`` given the prefactored ``M_inv = (H + rho G'G)^{-1}``.
 
     Shapes: ``M_inv (n,n)``, ``G (m,n)``, ``f (n,)``, bounds/duals ``(m,)``.
-    Everything is matmul + clip: maps straight onto MXU/VPU, no branching.
-    Matmuls run at HIGHEST precision — ADMM convergence to the 1e-6 parity
-    bar needs true f32 accumulation, and these GEMMs are far too small to
-    tax the MXU.
+    Everything is matmul + clip, no branching. Matmuls run at HIGHEST
+    precision (never TF32) — ADMM convergence to the 1e-6 parity bar needs
+    true f32 accumulation, and these GEMMs are far too small for the
+    precision to cost anything.
 
     The returned primal is refreshed from the FINAL ``(z, y)`` pair (one
-    extra half-step after the loop), matching ``admm_box_qp_composite`` and
-    the fused Pallas kernel, so all three paths return identical iterates.
+    extra half-step after the loop), matching ``admm_box_qp_composite``, so
+    both paths return identical iterates.
     """
     GT = G.T
     prec = jax.lax.Precision.HIGHEST
@@ -135,7 +136,7 @@ def admm_box_qp_composite(
         GU = G M^{-1} (-f + G'(rho z - y)) = p0 + P1 (rho z - y)
 
     The per-iteration dependency chain is a single (m, m) matvec, so for
-    latency-bound solves (sequential MXU ops) this is ~3x shorter; the
+    latency-bound solves (sequential small matmuls) this is ~3x shorter; the
     primal U is recovered once at the end. ``P1`` is a compile-time constant
     for fixed-horizon linear MPC."""
     prec = jax.lax.Precision.HIGHEST
@@ -233,9 +234,8 @@ def condense_ltv_doubling(A: jnp.ndarray, B: jnp.ndarray, c: jnp.ndarray):
     """``condense_ltv`` with log-depth block doubling instead of an N-step
     serial scan.
 
-    The serial condensation is issue-latency-bound on TPU (N=20 dependent
-    (nx,nx) matmuls measure ~66 us of the multitick tiers' per-dispatch
-    prep). Doubling combines adjacent horizon blocks
+    The serial condensation is a chain of N dependent (nx,nx) matmuls,
+    bound by issue latency rather than work. Doubling combines adjacent horizon blocks
 
         Sx = [Sx_L; Sx_R PhiL],  Su = [[Su_L, 0], [Sx_R SuL_end, Su_R]],
         Sc = [Sc_L; Sx_R ScL_end + Sc_R]
@@ -331,7 +331,7 @@ def active_set_polish(
 
     Detects the active set from the iterate's primal proximity + dual signs,
     then solves the equality-constrained KKT system restricted to it. The
-    system keeps ALL m dual variables (TPU/XLA needs static shapes): active
+    system keeps ALL m dual variables (XLA needs static shapes): active
     rows impose ``(GU)_i = b_i``, inactive rows impose ``nu_i = 0``:
 
         [ H      G'        ] [U ]   [ -f  ]
@@ -413,7 +413,7 @@ def ip_box_qp(
     nothing to work with. A primal-dual IPM's convergence rate does not
     degrade the same way, which is exactly why the reference leans on Ipopt
     (``/root/reference/src/px4/mpc.py:1427-1438``). This is the from-scratch
-    TPU-native equivalent: fixed iteration count, no branching, one (n,n)
+    in-graph equivalent: fixed iteration count, no branching, one (n,n)
     Cholesky per iteration — jit/vmap/scan-safe.
 
     Standard path-following with slacks ``s1 = GU - l``, ``s2 = u - GU``

@@ -1,16 +1,17 @@
 """Device-mesh helpers for batch-parallel sweeps.
 
 The reference has no compute collectives — its "distribution" is ROS 2 DDS
-pub/sub between processes (SURVEY.md section 5). The TPU-native equivalent
+pub/sub between processes (SURVEY.md section 5). The equivalent here
 (SURVEY.md section 2 rows P1-P3): the control loop itself fuses into one
-single-chip program, and multi-chip scale comes from **sharding batch axes**
-(trajectory sweeps, hyperparameter searches) over a ``jax.sharding.Mesh``,
-letting XLA insert the ICI collectives for any cross-batch reductions.
+single-device program, and multi-device scale comes from **sharding batch
+axes** (trajectory sweeps, hyperparameter searches) over a
+``jax.sharding.Mesh``, letting XLA insert the collectives for any
+cross-batch reductions.
 
 One mesh axis (``batch``) is the honest topology for this workload: there is
 no model parallelism to express — every flight/hyperparameter candidate is
 independent until the final reduction (argmin / metric gather), which XLA
-lowers to an all-reduce over ICI.
+lowers to an all-reduce.
 """
 
 from __future__ import annotations

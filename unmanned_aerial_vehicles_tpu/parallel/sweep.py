@@ -5,7 +5,7 @@ trajectory/hyperparameter batches" on a device mesh. Two sweeps:
 
 * ``sharded_flight_sweep`` — B closed-loop flights (different initial states)
   vmapped and sharded over the mesh batch axis; per-flight tracking metrics
-  come back sharded, the cross-flight aggregates force an ICI all-reduce.
+  come back sharded, the cross-flight aggregates force an all-reduce.
 * ``hyperparameter_search_step`` — the GP "training step": H candidate
   hyperparameter settings fitted and scored (validation MSE + LML) in
   parallel across the mesh, then a global argmin picks the winner —
@@ -61,7 +61,7 @@ def hyperparameter_search_step(
     @jax.jit
     def run(cands):
         mse, lml = jax.vmap(score_one)(cands)
-        best = jnp.argmin(mse)  # sharded-axis reduction -> ICI all-reduce
+        best = jnp.argmin(mse)  # sharded-axis reduction -> all-reduce
         best_params = jax.tree_util.tree_map(lambda a: a[best], cands)
         return SweepResult(best, best_params, mse, lml)
 
@@ -78,7 +78,7 @@ def sharded_flight_sweep(
 
     ``rollout_fn(initial_state) -> outs dict`` (e.g. a partial of
     ``loop.mpc_flight_rollout``). Returns per-flight RMS position errors
-    (sharded) plus their global mean/max (ICI all-reduce).
+    (sharded) plus their global mean/max (an all-reduce).
     """
     states = shard_batch(initial_states, mesh, axis_name)
 
@@ -108,23 +108,15 @@ def sharded_structured_flight_sweep(
     axis_name: str = "batch",
     gp_posterior=None,
     gp_cfg=None,
-    gp_fused_precision: str = "high",
 ):
-    """B flights through the STRUCTURED batched controller kernel, sharded
-    over the mesh: each device runs its local flight block through
-    ``loop.closed_loop.batched_mpc_flight_sweep`` (one gridded Pallas
-    dispatch per tick, iterates VMEM-resident), and the cross-flight RMS
-    aggregates reduce over ICI. This is the multi-chip form of the
-    throughput mode — kernels inside ``jax.shard_map``.
+    """B flights of the batched sweep, sharded over the mesh: each device
+    runs its local flight block through
+    ``loop.closed_loop.batched_mpc_flight_sweep`` inside ``jax.shard_map``
+    (the GP stage's kernel runs per device on a replicated posterior), and
+    the cross-flight RMS aggregates reduce with ``pmean`` / ``pmax``.
 
-    ``gp_posterior`` routes the GP stage through the fused limb-packed
-    Pallas posterior-mean kernel on every device (replicated posterior,
-    sharded flights) — see ``batched_mpc_flight_sweep``.
-
-    ``mpc`` must be built with ``use_fused_controller=True``. Flights
-    per device are padded up to the kernel block internally, so prefer
-    ``B >= 128 * mesh size`` for efficiency. Returns the same aggregate
-    dict as ``sharded_flight_sweep``.
+    B must divide by the mesh size. Returns the same aggregate dict as
+    ``sharded_flight_sweep``.
     """
     import functools
 
@@ -143,13 +135,13 @@ def sharded_structured_flight_sweep(
             "rms_mean": P(),
             "rms_max": P(),
         },
-        check_vma=False,   # pallas_call inside shard_map
+        check_vma=False,   # the GP stage's pallas_call inside shard_map
     )
     def run(local_starts):
         outs = batched_mpc_flight_sweep(
             mpc, reference_fn, num_steps, local_starts, cfg=cfg,
             residual_fn=residual_fn, gp_posterior=gp_posterior,
-            gp_cfg=gp_cfg, gp_fused_precision=gp_fused_precision,
+            gp_cfg=gp_cfg,
         )
         err = outs["pos_ref"][:, None, :] - outs["state"][:, :, 0:3]
         rms = jnp.sqrt(jnp.mean(jnp.sum(err**2, axis=-1), axis=0))  # (B_loc,)

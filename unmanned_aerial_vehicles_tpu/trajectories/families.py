@@ -6,7 +6,7 @@ configurations mirror ``/root/reference/src/px4/trajectory_definitions.py``
 circle's ``z = -center[2]`` flip at :103, the sine wave's ``z = -center[2]``
 at :341, simplified accelerations on square/spiral/waypoint/cloverleaf).
 
-TPU-first differences from the reference:
+Differences from the reference:
 
 * every family accepts scalar **or batched** ``t`` and broadcasts — a whole
   horizon or a 1k-trajectory sweep evaluates as one fused XLA program

@@ -4,8 +4,8 @@ The reference hand-tunes every controller: the cascade PID ships an
 "EMERGENCY SAFETY" gain set arrived at by trial flights
 (``/root/reference/src/px4/cascade_pid_demo.py:194-210``) and the MPC cost
 weights are hard-coded constants (``/root/reference/src/px4/mpc.py:1384-1418``).
-There is no counterpart to this module — it is a capability the TPU-first
-design gets for free: a whole flight is ONE ``lax.scan``
+There is no counterpart to this module — it is a capability the
+one-program design gets for free: a whole flight is ONE ``lax.scan``
 (``loop/closed_loop.py``), so the campaign RMS is a *differentiable* function
 of the gain pytree, and controller tuning becomes gradient descent through
 the closed loop (plant included) instead of manual iteration.
@@ -30,7 +30,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Tuple
 
-from flax import struct
+from .. import struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -336,19 +336,6 @@ class _TracedWeightMPC:
         M = H + cfg.admm_rho * mm(G_j.T, G_j)
         self._M_chol = jnp.linalg.cholesky(M)
 
-        if config.use_fused_controller:
-            # traced twin of LinearMPC's fused-kernel operands: weight
-            # gradients flow through the padded matrices into the Pallas
-            # tick (whose VJP is supplied by ops.tick_ad)
-            from ..ops.tick_ad import build_fused_controller_data_traced
-
-            M_inv = jax.scipy.linalg.cho_solve(
-                (self._M_chol, True), jnp.eye(N * nu, dtype=jnp.float32)
-            )
-            self._fc_data = build_fused_controller_data_traced(
-                self._Sx, self._Su, self._Sw, self._SuTq, M_inv,
-                self._G, self._u_lo, self._u_hi, self._x_lo, self._x_hi,
-            )
 
     def init_carry(self, state=None) -> MPCCarry:
         N = self.config.horizon
@@ -457,21 +444,9 @@ def tune_mpc_weights(
 
     Returns ``(TuningResult with the weight pytree, tuned LinearMPCConfig)``.
     The returned config drops straight into the deployment ``LinearMPC``
-    (compile-time-constant matrices, fused kernels available).
+    (compile-time-constant matrices).
     """
     base = base_config if base_config is not None else LinearMPCConfig()
-    if loop_cfg.use_fused_tick:
-        # tune THE PROGRAM THAT FLIES: the fused multi-tick Pallas kernel
-        # forward, staged-twin VJP backward (ops.tick_ad)
-        if not base.use_fused_controller:
-            base = base.replace(use_fused_controller=True)
-        if not loop_cfg.fused_tick_ad:
-            loop_cfg = loop_cfg.replace(fused_tick_ad=True)
-        if loop_cfg.ticks_per_dispatch <= 1:
-            raise ValueError(
-                "fused-tier tuning runs on the multi-tick path: set "
-                "FlightLoopConfig.ticks_per_dispatch > 1"
-            )
 
     def loss_fn(theta):
         mpc = _TracedWeightMPC(theta, base)

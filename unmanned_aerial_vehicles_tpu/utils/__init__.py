@@ -1,5 +1,4 @@
 from .examples import fast_examples, scaled
-from .profiling import device_timeit, scan_slope_timeit, trace
 from .rotations import (
     euler_to_quaternion,
     euler_to_rotation_matrix,
@@ -11,9 +10,6 @@ from .rotations import (
 __all__ = [
     "fast_examples",
     "scaled",
-    "device_timeit",
-    "scan_slope_timeit",
-    "trace",
     "euler_to_quaternion",
     "euler_to_rotation_matrix",
     "euler_rate_transform",
